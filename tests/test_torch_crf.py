@@ -1,0 +1,156 @@
+"""Parity of the port's dense CRF with pylc_tpu/ops/crf.py and its Pallas
+kernel (run in interpret mode, as tests/test_crf.py runs it).
+
+The CUDA kernel itself cannot run here: chip_smoke.py holds it against
+``crf_iteration_reference`` on the card.  These tests pin the reference
+form and everything around the kernel."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pylc_tpu.ops import crf as jcrf
+from pylc_tpu.ops.pallas.crf_kernel import crf_iteration as jax_iteration
+from pylc_tpu_torch.ops import crf as tcrf
+from pylc_tpu_torch.ops.kernels import crf_kernel as K
+
+torch.set_num_threads(1)
+
+SIGMAS = dict(sigma_spatial_app=3.0, sigma_color=13.0, sigma_spatial_sm=1.5,
+              w_app=3.0, w_sm=1.0)
+
+
+def _inputs(rng, H, W, C, G=3):
+    probs = rng.random((H, W, C)).astype(np.float32)
+    probs /= probs.sum(-1, keepdims=True)
+    guide = rng.integers(0, 256, (H, W, G)).astype(np.uint8)
+    return probs, guide
+
+
+def test_reference_iteration_matches_pallas_kernel():
+    """40x72 is ragged against the Pallas kernel's 64x256 blocks."""
+    rng = np.random.default_rng(0)
+    H, W, C, r = 40, 72, 7, 2
+    q = rng.random((C, H, W)).astype(np.float32)
+    q /= q.sum(0, keepdims=True)
+    g = rng.integers(0, 256, (3, H, W)).astype(np.float32)
+    u = np.log(q + 1e-8)
+    want = np.asarray(jax_iteration(jnp.asarray(q), jnp.asarray(g),
+                                    jnp.asarray(u), r, **SIGMAS,
+                                    interpret=True))
+    got = K.crf_iteration_reference(torch.from_numpy(q), torch.from_numpy(g),
+                                    torch.from_numpy(u), r, **SIGMAS)
+    # the same product-of-exps form; atol of tests/test_crf.py:76
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-6)
+
+
+@pytest.mark.parametrize("H,W,downsample", [(48, 80, 2), (37, 70, 2),
+                                            (30, 44, 1)])
+def test_mean_field_matches_jax_xla(H, W, downsample):
+    rng = np.random.default_rng(1)
+    probs, guide = _inputs(rng, H, W, 9)
+    p = dict(n_iters=3, radius=2, downsample=downsample)
+    want = np.asarray(jcrf.mean_field(jnp.asarray(probs), jnp.asarray(guide),
+                                      jcrf.CRFParams(**p, backend="xla")))
+    got = tcrf.mean_field(torch.from_numpy(probs), torch.from_numpy(guide),
+                          tcrf.CRFParams(**p)).numpy()
+    assert got.shape == (H, W, 9)
+    # product of two exps here, exp of their sum in the XLA form: ulps
+    # per weight, a few 1e-7 after three iterations and the upsample
+    np.testing.assert_allclose(got, want, atol=2e-6)
+    np.testing.assert_allclose(got.sum(-1), 1.0, atol=1e-5)
+
+
+def test_mean_field_matches_jax_pallas_branch():
+    """The branch the port follows step by step, with grayscale guide."""
+    rng = np.random.default_rng(2)
+    probs, guide = _inputs(rng, 36, 52, 5, G=1)
+    p = dict(n_iters=2, radius=3, downsample=2)
+    want = np.asarray(jcrf.mean_field(jnp.asarray(probs),
+                                      jnp.asarray(guide[..., 0]),
+                                      jcrf.CRFParams(**p, backend="pallas")))
+    got = tcrf.mean_field(torch.from_numpy(probs),
+                          torch.from_numpy(guide[..., 0]),
+                          tcrf.CRFParams(**p)).numpy()
+    np.testing.assert_allclose(got, want, atol=2e-6)
+
+
+def test_make_crf_reads_config():
+    from pylc_tpu.config import Config
+    cfg = Config().replace(crf_iters=4, crf_radius=2, crf_downsample=1,
+                           crf_sigma_color=10.0)
+    assert tcrf.make_crf(cfg).params == tcrf.CRFParams(
+        n_iters=4, radius=2, downsample=1, sigma_color=10.0)
+    jp = jcrf.make_crf(cfg).params
+    assert tcrf.make_crf(cfg).params == tcrf.CRFParams(
+        **{k: getattr(jp, k) for k in tcrf.CRFParams._fields})
+
+
+def test_cpu_tensor_takes_plain_path_without_launch():
+    rng = np.random.default_rng(3)
+    probs, guide = _inputs(rng, 20, 24, 4)
+    before = K.crf_iteration.launches
+    out = tcrf.mean_field(torch.from_numpy(probs), torch.from_numpy(guide),
+                          tcrf.CRFParams(n_iters=3, radius=1))
+    assert K.crf_iteration.launches == before == 0
+    assert torch.isfinite(out).all()
+    q = torch.from_numpy(probs).permute(2, 0, 1).contiguous()
+    g = torch.from_numpy(guide).permute(2, 0, 1).float().contiguous()
+    u = torch.log(q + 1e-8)
+    assert torch.equal(K.crf_iteration(q, g, u, 2, **SIGMAS),
+                       K.crf_iteration_reference(q, g, u, 2, **SIGMAS))
+    assert K.crf_iteration.launches == 0
+
+
+def test_kernel_source_and_build_flags():
+    """What the card builds: sm_90a without fast math, from the package's
+    own source, into the package's build directory."""
+    import os
+    assert os.path.exists(K.SOURCE)
+    assert os.path.dirname(K.LIBRARY) == K.BUILD_DIR
+    assert "arch=compute_90a,code=sm_90a" in K.NVCC_FLAGS
+    assert not any("fast" in f for f in K.NVCC_FLAGS)
+    with open(K.SOURCE) as f:
+        src = f.read()
+    for bound, name in ((K.MAX_CLASSES, "kMaxC"), (K.MAX_GUIDE, "kMaxG"),
+                        (K.MAX_RADIUS, "kMaxR")):
+        assert f"constexpr int {name} = {bound};" in src
+
+
+def _miou(pred, true, n_classes):
+    ious = [np.sum((pred == c) & (true == c)) / np.sum((pred == c) |
+                                                        (true == c))
+            for c in range(n_classes) if np.any((pred == c) | (true == c))]
+    return float(np.mean(ious))
+
+
+def test_crf_improves_miou_as_jax_does():
+    """The accuracy check of tests/test_crf.py::test_crf_improves_miou on
+    the port's CRF: noisy unaries over colour-consistent Voronoi regions;
+    refinement must raise mIoU as the JAX CRF does, to within 0.01."""
+    rng = np.random.default_rng(42)
+    H, W, C = 128, 128, 5
+    pts = rng.integers(0, [H, W], size=(C * 3, 2))
+    lbl = rng.integers(0, C, size=(C * 3,))
+    yy, xx = np.mgrid[0:H, 0:W]
+    d = (yy[..., None] - pts[:, 0]) ** 2 + (xx[..., None] - pts[:, 1]) ** 2
+    true = lbl[np.argmin(d, axis=-1)].astype(np.int32)
+    colors = rng.integers(40, 255, size=(C, 3))
+    guide = np.clip(colors[true] + rng.normal(0, 8, (H, W, 3)), 0,
+                    255).astype(np.uint8)
+    noisy = np.where(rng.random((H, W)) < 0.15,
+                     rng.integers(0, C, size=(H, W)), true)
+    logits = np.eye(C, dtype=np.float32)[noisy] * 2.0
+    logits += rng.normal(0, 0.7, logits.shape).astype(np.float32)
+    probs = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+
+    p = dict(n_iters=5, radius=3, downsample=1)
+    before = _miou(probs.argmax(-1), true, C)
+    got = tcrf.mean_field(torch.from_numpy(probs), torch.from_numpy(guide),
+                          tcrf.CRFParams(**p)).numpy()
+    want = np.asarray(jcrf.mean_field(jnp.asarray(probs), jnp.asarray(guide),
+                                      jcrf.CRFParams(**p, backend="xla")))
+    after = _miou(got.argmax(-1), true, C)
+    assert after > before + 0.05 and after > 0.85, (before, after)
+    assert abs(after - _miou(want.argmax(-1), true, C)) <= 0.01

@@ -1,0 +1,134 @@
+"""The slice as a whole: the port's Segmenter and its ``test`` CLI against
+the JAX package's Segmenter, same DeepLabV3+/ResNet101 weights, f32 on
+the CPU, dense CRF on.
+
+The weights are built once for the module (JAX ``init_state``) and
+reach the port as the reference-schema ``.pth`` the JAX exporter
+writes."""
+
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from pylc_tpu.config import Config
+from pylc_tpu.convert import export_deeplab_pth
+from pylc_tpu.infer import Segmenter as JaxSegmenter
+from pylc_tpu.models.registry import build_model as jax_build_model
+from pylc_tpu.ops.crf import make_crf as jax_make_crf
+from pylc_tpu.train_state import init_state, make_predict as jax_make_predict
+from pylc_tpu_torch.infer import STAGES, Segmenter
+from pylc_tpu_torch.ops.crf import make_crf
+from pylc_tpu_torch.ops.kernels.crf_kernel import crf_iteration
+from pylc_tpu_torch.tester import load_model
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TILE, STRIDE = 64, 32
+CRF = dict(radius=2, n_iters=2)
+
+
+@pytest.fixture(scope="module")
+def weights(tmp_path_factory):
+    cfg = Config().replace(tile_size=TILE, compute_dtype="float32")
+    state, _ = init_state(cfg, jax.random.PRNGKey(0))
+    pth = export_deeplab_pth(
+        state, cfg, str(tmp_path_factory.mktemp("model") / "m.pth"))
+    return cfg, state, pth
+
+
+@pytest.fixture(scope="module")
+def photo():
+    # smooth colour fields plus noise: regions for the CRF to follow
+    rng = np.random.default_rng(0)
+    yy, xx = np.mgrid[0:128, 0:192]
+    base = np.stack([yy * 2, xx, (yy + xx) % 256], -1)
+    return np.clip(base + rng.normal(0, 12, base.shape), 0,
+                   255).astype(np.uint8)
+
+
+@pytest.fixture(scope="module")
+def port_segmenter(weights):
+    cfg, _, pth = weights
+    cfg, _, predict = load_model(
+        pth, Config().replace(compute_dtype="float32"), torch.device("cpu"))
+    return Segmenter(cfg, predict, torch.device("cpu"), batch_size=16,
+                     crf=make_crf(cfg, **CRF))
+
+
+def test_segmenter_matches_jax(weights, photo, port_segmenter):
+    cfg, state, _ = weights
+    jseg = JaxSegmenter(cfg, state,
+                        jax_make_predict(cfg, jax_build_model(cfg)),
+                        batch_size=16, crf=jax_make_crf(cfg, **CRF))
+    want = jseg.segment_array(photo, STRIDE)
+    got = port_segmenter.segment_array(photo, STRIDE)
+    assert got["class_map"].shape == (128, 192)
+    assert got["class_map"].dtype == np.uint8
+    # f32 conv sums in another order, then the CRF's exp forms
+    np.testing.assert_allclose(got["probs"].numpy(),
+                               np.asarray(want["probs"]), atol=1e-4)
+    differ = np.mean(got["class_map"] != want["class_map"])
+    assert differ <= 1e-3, f"class maps differ on {differ:.4%} of pixels"
+    np.testing.assert_array_equal(
+        got["mask_rgb"], np.asarray(cfg.palette_rgb, np.uint8)[
+            got["class_map"]])
+
+
+def test_staged_and_stream_agree_with_segment_array(photo, port_segmenter):
+    base = port_segmenter.segment_array(photo, STRIDE)
+    staged = port_segmenter.segment_array_staged(photo, STRIDE)
+    assert list(staged["stages"]) == list(STAGES)
+    assert all(v >= 0 for v in staged["stages"].values())
+    np.testing.assert_array_equal(staged["class_map"], base["class_map"])
+    streamed = list(port_segmenter.segment_stream(
+        [("a", photo), ("b", photo[:, :128])], STRIDE))
+    assert [t for t, _ in streamed] == ["a", "b"]
+    np.testing.assert_array_equal(streamed[0][1]["class_map"],
+                                  base["class_map"])
+    assert streamed[1][1]["class_map"].shape == (128, 128)
+    assert crf_iteration.launches == 0  # CPU tensors: the plain form
+
+
+def test_cli_writes_segmenter_mask(weights, photo, tmp_path):
+    """``python -m pylc_tpu_torch test -l m.pth -i photo.jpg --crf
+    --device cpu`` writes the mask the port's Segmenter gives."""
+    import cv2
+
+    _, _, pth = weights
+    img_path = str(tmp_path / "photo.jpg")
+    cv2.imwrite(img_path, cv2.cvtColor(photo, cv2.COLOR_RGB2BGR))
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, "-m", "pylc_tpu_torch", "test", "-l", pth, "-i",
+         img_path, "--crf", "--device", "cpu"],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    masks = tmp_path / "data" / "outputs" / "pylc_deeplab_ch3_schema_a" / \
+        "masks"
+    written = cv2.imread(str(masks / "photo_jpg_scale_1.0.png"))
+    assert written is not None, os.listdir(masks)
+    cfg, _, predict = load_model(pth, Config(), torch.device("cpu"))
+    want = Segmenter(cfg, predict, torch.device("cpu"),
+                     crf=make_crf(cfg)).segment_file(img_path)["mask_rgb"]
+    np.testing.assert_array_equal(cv2.cvtColor(written, cv2.COLOR_BGR2RGB),
+                                  want)
+
+
+def test_cli_refuses_missing_card_and_unported_modes(weights, tmp_path):
+    from pylc_tpu_torch.cli import main
+    _, _, pth = weights
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(["test", "-l", pth, "-i", str(tmp_path)])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        main(["train", "--db", "x.h5", "--device", "cpu"])
+    ckpt = tmp_path / "m.ckpt"
+    ckpt.touch()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        load_model(str(ckpt), Config())
