@@ -2,15 +2,36 @@
 
     python3 chip_smoke.py
 
-Builds kernel K1 (the dense-CRF mean-field iteration,
-pylc_tpu_torch/csrc/crf_iteration.cu) from the checkout's source, holds
-it against its plain torch version at the serving shape and at a ragged
-one, then drives the port's main path, ``Segmenter`` with the CRF on, at
-full width: DeepLabV3+/ResNet101 (OS16, schema_a, 512 px tiles at
-stride 256) on a seeded 3584x2048 photo, with random weights from a
-seeded ``torch.Generator`` that go through a reference-schema ``.pth``
-and ``load_pth_model``.  Last comes the ``test`` CLI on a 3872x2592
-JPEG.  Any failed check raises, and the script exits non-zero.
+Phases, in order; any failed check raises, and the script exits non-zero:
+
+  [build]  nvcc builds both kernel libraries from the checkout's sources,
+           in parallel: K1 (the dense-CRF mean-field iteration,
+           csrc/crf_iteration.cu) and K2a/K2b (the fused CE+Dice+Focal
+           loss forward and backward, csrc/fused_loss.cu), with their
+           register and spill reports.
+  [k1]     K1 against its plain torch version at the serving shape and at
+           a ragged one.
+  [k2]     K2a and K2b against their plain versions at the training
+           slice's [8, 9, 512, 512] channels_last logits (weighted and
+           not) and at a ragged contiguous [1, 11, 37, 29] with targets
+           outside [0, C): K2a's 3C + 4 statistics entry by entry and the
+           losses from them, K2b's dlogits against the plain backward fed
+           by the plain forward.
+  [net]    the f32 network on the card against the same network on the
+           CPU.
+  [slice]  the segmentation path: ``Segmenter`` with the CRF on, at full
+           width (DeepLabV3+/ResNet101, OS16, schema_a, 512 px tiles at
+           stride 256) on a seeded 3584x2048 photo, with random weights
+           from a seeded ``torch.Generator`` that go through a
+           reference-schema ``.pth`` and ``load_pth_model``.
+  [cli]    the ``test`` CLI on a 3872x2592 JPEG.
+  [train]  the training path: ``trainer.train`` at full width (512 px,
+           batch 8, bf16 autocast, AdamW with step_lr, clip 0.5, the fused
+           loss on K2a/K2b) on an in-memory DB of 40 seeded tiles for 2
+           epochs, from seeded He-normal weights; the best model loads
+           through ``tester.load_model`` and segments a 1024x1024 photo;
+           then 10 timed steps on one fixed batch, whose loss must fall,
+           one of them under ``torch.profiler``.
 
 Output: per-phase lines, then one JSON line with every kernel, the
 card's ``name, power.limit`` line, and last a JSON line
@@ -26,6 +47,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -40,6 +62,23 @@ K1_SHAPES = [                  # (C, G, H, W, r)
 K1_ATOL = 1e-5                 # f32, no fast math; measured ~2e-7
 CRF_AGREEMENT = 0.999          # class maps, kernel CRF vs plain CRF
 N_PHOTOS = 3                   # timed runs of the slice after one warm-up
+K2_SHAPES = [                  # (B, C, H, W, channels_last, weighted)
+    (8, 9, 512, 512, True, False),   # the training slice
+    (8, 9, 512, 512, True, True),
+    (1, 11, 37, 29, False, True),    # ragged, contiguous NCHW
+]
+# f32, no fast math.  Both sides sum millions of terms in different
+# orders (the kernel: per-block tree then a double-precision pass; torch:
+# its own reduction tree), hence relative limits.
+K2_ACC_RTOL = 1e-5             # per entry of the 3C + 4 statistics: each is
+                               # a sum of non-negative terms, so the order
+                               # moves it by ~log2(N) eps_f32 of itself
+K2_LOSS_RTOL = 1e-5            # on total, ce, dice and focal
+K2_DX_RTOL = 1e-5              # on dlogits, times max |dlogits|
+TRAIN_TILES = 40               # in-memory DB, 512 px
+TRAIN_EPOCHS = 2
+FIXED_STEPS = 10               # timed steps on one fixed batch
+TRAIN_PHOTO_HW = (1024, 1024)  # segmented by the trained model
 
 
 def log(msg: str) -> None:
@@ -68,23 +107,6 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def random_deeplab(cfg, seed: int):
-    """DeepLabV3+/ResNet101 with He-normal conv weights drawn from a
-    seeded generator; BatchNorm starts as identity."""
-    from pylc_tpu_torch.models.registry import build_model
-    model = build_model(cfg)
-    gen = torch.Generator().manual_seed(seed)
-    with torch.no_grad():
-        for m in model.modules():
-            if isinstance(m, torch.nn.Conv2d):
-                fan_in = m.weight[0].numel()
-                m.weight.copy_(torch.randn(m.weight.shape, generator=gen)
-                               * (2.0 / fan_in) ** 0.5)
-                if m.bias is not None:
-                    m.bias.zero_()
-    return model
-
-
 def plain_crf(params):
     """The CRF of ``ops/crf.py`` step by step, with every iteration done
     by the plain torch version instead of the kernel."""
@@ -110,14 +132,26 @@ def plain_crf(params):
 
 
 def phase_build():
-    from pylc_tpu_torch.ops.kernels import crf_kernel
+    """Both libraries from source, one nvcc each, started together."""
+    from pylc_tpu_torch.ops.kernels import _build, crf_kernel, fused_loss
+
+    def timed(build):
+        t0 = time.perf_counter()
+        path, report = build(force=True)
+        return path, report, time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    path, report = crf_kernel.build(force=True)
-    log(f"[build] nvcc {' '.join(crf_kernel.NVCC_FLAGS)} -> "
-        f"{os.path.relpath(path, REPO)} in {time.perf_counter() - t0:.2f} s")
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build]   {line.strip()}")
+    with ThreadPoolExecutor(max_workers=2) as ex:
+        futs = [ex.submit(timed, k.build) for k in (crf_kernel, fused_loss)]
+        results = [f.result() for f in futs]
+    log(f"[build] nvcc {' '.join(_build.NVCC_FLAGS)}: both built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for path, report, secs in results:
+        log(f"[build] -> {os.path.relpath(path, REPO)} in {secs:.2f} s")
+        for line in report.splitlines():
+            if "Compiling entry" in line or "registers" in line \
+                    or "spill" in line:
+                log(f"[build]   {line.strip()}")
 
 
 def phase_k1(device):
@@ -152,6 +186,82 @@ def phase_k1(device):
     return worst, slice_ms, slice_plain_ms
 
 
+def phase_k2(device):
+    """K2a and K2b against fused_forward_reference and
+    fused_backward_reference on the card."""
+    from pylc_tpu_torch.ops.kernels.fused_loss import (
+        fused_backward_reference, fused_forward_reference,
+        fused_loss_backward, fused_loss_forward, losses_from_acc)
+    from pylc_tpu_torch.ops.losses import LossWeights
+    worst_loss, worst_dx, times = 0.0, 0.0, None
+    for B, C, H, W, cl, weighted in K2_SHAPES:
+        rng = np.random.default_rng(B * 100 + C)
+        x = torch.from_numpy(
+            rng.normal(size=(B, C, H, W)).astype(np.float32) * 3).to(device)
+        if cl:
+            x = x.contiguous(memory_format=torch.channels_last)
+        t = rng.integers(0, C, (B, H, W)).astype(np.uint8)
+        if not cl:   # ragged: targets outside [0, C), no class
+            t[rng.random(t.shape) < 0.1] = 255
+            t[rng.random(t.shape) < 0.05] = C
+        t = torch.from_numpy(t).to(device)
+        cw = torch.from_numpy((rng.random(C) + 0.2).astype(np.float32)
+                              ).to(device)
+        w = LossWeights(weighted=weighted)
+        ct = torch.tensor(0.75, device=device)
+        acc = fused_loss_forward(x, t, cw, w)
+        acc_ref = fused_forward_reference(x, t, cw, w)
+        # each side's backward from its own forward: a fault of K2a that
+        # reaches the gradient shows in dlogits too
+        dx = fused_loss_backward(x, t, cw, acc, ct, w)
+        dx_ref = fused_backward_reference(x, t, cw, acc_ref, ct, w)
+        torch.cuda.synchronize()
+        if dx.stride() != x.stride():
+            raise AssertionError(f"dlogits strides {dx.stride()} are not "
+                                 f"the logits' {x.stride()}")
+        acc_diff = (acc - acc_ref).abs()
+        acc_rel = (acc_diff / acc_ref.abs()).nan_to_num(0.0).max().item()
+        acc_bad = int((~(acc_diff <= K2_ACC_RTOL * acc_ref.abs())).sum())
+        got = torch.stack(losses_from_acc(acc, C, w))
+        want = torch.stack(losses_from_acc(acc_ref, C, w))
+        loss_err = (got - want).abs().max().item()
+        loss_rel = ((got - want).abs() / want.abs()).max().item()
+        dx_err = (dx - dx_ref).abs().max().item()
+        dx_scale = dx_ref.abs().max().item()
+        fwd_ms = cuda_ms(lambda: fused_loss_forward(x, t, cw, w), 20)
+        fwd_plain = cuda_ms(lambda: fused_forward_reference(x, t, cw, w), 5)
+        bwd_ms = cuda_ms(lambda: fused_loss_backward(x, t, cw, acc, ct, w),
+                         20)
+        bwd_plain = cuda_ms(
+            lambda: fused_backward_reference(x, t, cw, acc, ct, w), 5)
+        layout = "channels_last" if cl else "contiguous"
+        log(f"[k2] [{B},{C},{H},{W}] {layout} weighted={weighted}: losses "
+            f"(total, ce, dice, focal) {[round(v, 6) for v in got.tolist()]}"
+            f" max_abs_err {loss_err:.3e} max_rel_err {loss_rel:.3e} "
+            f"(limit {K2_LOSS_RTOL:g}); statistics ({3 * C + 4} entries) "
+            f"max_rel_err {acc_rel:.3e} (limit {K2_ACC_RTOL:g} each); "
+            f"dlogits max_abs_err {dx_err:.3e} at max |dx| {dx_scale:.3e} "
+            f"(limit {K2_DX_RTOL:g} x max)")
+        log(f"[k2]   K2a {fwd_ms:.4f} ms vs plain {fwd_plain:.4f} ms; K2b "
+            f"{bwd_ms:.4f} ms vs plain {bwd_plain:.4f} ms")
+        if acc_bad:
+            raise AssertionError(
+                f"K2a disagrees with its plain version on {acc_bad} of "
+                f"{3 * C + 4} statistics: {acc.tolist()} vs "
+                f"{acc_ref.tolist()}")
+        if not loss_rel <= K2_LOSS_RTOL:
+            raise AssertionError(f"K2a disagrees with its plain version: "
+                                 f"relative {loss_rel} > {K2_LOSS_RTOL}")
+        if not dx_err <= K2_DX_RTOL * dx_scale:
+            raise AssertionError(f"K2b disagrees with its plain version: "
+                                 f"{dx_err} > {K2_DX_RTOL} x {dx_scale}")
+        worst_loss, worst_dx = max(worst_loss, loss_err), max(worst_dx,
+                                                              dx_err)
+        if times is None:
+            times = (fwd_ms, fwd_plain, bwd_ms, bwd_plain)
+    return worst_loss, worst_dx, times
+
+
 def phase_network_check(model, cfg, device):
     """The network on the card in true f32 against the same network on
     the CPU, on two tiles: the tolerance of tests/test_golden_parity.py."""
@@ -183,10 +293,11 @@ def phase_slice(device, workdir, cfg_base=None, hw=SLICE_HW):
     from pylc_tpu_torch.ops.crf import make_crf
     from pylc_tpu_torch.ops.kernels.crf_kernel import crf_iteration
     from pylc_tpu_torch.tester import load_model
+    from pylc_tpu_torch.train_state import init_model
 
     cfg = cfg_base or Config()
     pth = os.path.join(workdir, "deeplab_resnet101_random.pth")
-    model = random_deeplab(cfg, seed=0)
+    model = init_model(cfg, seed=0)
     torch.save({"model": model.state_dict(), "meta": cfg.to_meta()}, pth)
     del model
     cfg, model, _ = load_model(pth, cfg, device)
@@ -291,6 +402,148 @@ def phase_cli(pth, workdir):
         "kernel load, one photo)")
 
 
+def structured_tiles(rng, n: int, tile: int, cfg):
+    """n seeded tiles with something to learn: a mask of 8x8 cells of
+    random classes, and an image whose colour is the class's palette
+    colour plus noise.  Returns (img [n, 3, tile, tile], mask [n, tile,
+    tile]), both uint8."""
+    cells = rng.integers(0, cfg.n_classes, (n, 8, 8))
+    rep = tile // 8
+    mask = np.repeat(np.repeat(cells, rep, axis=1), rep, axis=2)
+    colour = np.asarray(cfg.palette_rgb, np.float32)[mask]  # [n, T, T, 3]
+    img = colour + rng.normal(0, 24, colour.shape)
+    img = np.clip(img, 0, 255).astype(np.uint8).transpose(0, 3, 1, 2)
+    return np.ascontiguousarray(img), mask.astype(np.uint8)
+
+
+def _profile_step(step, img, mask, gen, step_ms: float):
+    """One train step under torch.profiler: device time by kernel, and
+    the device's busy share of the profiled step and of an unprofiled
+    one (``step_ms``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(img, mask, gen)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side events, less the ranges of user annotations (the
+    # optimizer's step), which span kernels already counted
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    log(f"[train] profiled step: {sum(e.count for e in kernels)} kernel "
+        f"launches, {busy_ms:.2f} ms of device time; profiled wall "
+        f"{wall_ms:.2f} ms; against the unprofiled median step "
+        f"{step_ms:.2f} ms the idle share is {1 - busy_ms / step_ms:.3f}. "
+        "Top kernels by device time:")
+    for e in kernels[:15]:
+        log(f"[train]   {e.self_device_time_total / 1e3:8.3f} ms "
+            f"x{e.count:<5d} {e.key[:100]}")
+
+
+def phase_train(device, workdir):
+    """The training path: trainer.train at full width on an in-memory DB,
+    the best model through tester.load_model, then FIXED_STEPS timed
+    steps on one fixed batch."""
+    from pylc_tpu_torch.config import Config
+    from pylc_tpu_torch.db import TileDB
+    from pylc_tpu_torch.infer import Segmenter
+    from pylc_tpu_torch.ops.kernels.fused_loss import (
+        fused_loss_backward, fused_loss_forward)
+    from pylc_tpu_torch.tester import load_model
+    from pylc_tpu_torch.train_state import make_optimizer, make_train_step
+    from pylc_tpu_torch.trainer import train
+
+    cfg = Config().replace(save_dir=os.path.join(workdir, "save"),
+                           n_epochs=TRAIN_EPOCHS, report=2)
+    T = cfg.tile_size
+    img, mask = structured_tiles(np.random.default_rng(11), TRAIN_TILES, T,
+                                 cfg)
+    db = {"img": img, "mask": mask,
+          "meta": cfg.replace(id="chip_smoke_db").to_meta()}
+    n_train = TileDB(data=db, partition=(0.0, 1.0 - cfg.partition)
+                     ).partition_size
+    steps = TRAIN_EPOCHS * (n_train // cfg.batch_size)
+
+    torch.cuda.reset_peak_memory_stats(device)
+    fused_loss_forward.launches = fused_loss_backward.launches = 0
+    t0 = time.perf_counter()
+    summary = train(cfg, db, verbose=False, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = (fused_loss_forward.launches, fused_loss_backward.launches)
+    peak = torch.cuda.max_memory_allocated(device)
+    log(f"[train] trainer.train: {summary['steps']} steps of "
+        f"{cfg.batch_size} x {T} px in {TRAIN_EPOCHS} epochs, "
+        f"{wall:.2f} s wall (3 validations, checkpoints); K2a launches "
+        f"{launches[0]}, K2b launches {launches[1]} (expected {steps} "
+        f"each: once per train step, never in validation); peak device "
+        f"memory {peak / 2 ** 30:.3f} GiB")
+    if summary["steps"] != steps or launches != (steps, steps):
+        raise AssertionError(f"{summary['steps']} steps, K2 launches "
+                             f"{launches}, expected {steps}")
+    model_dir = os.path.join(cfg.save_dir, summary["model_id"])
+    with open(os.path.join(model_dir, "losses.json")) as f:
+        losses = json.load(f)
+    rows = losses["train"] + losses["valid"]
+    if not losses["valid"] or not np.isfinite(
+            np.asarray([r[1:] for r in rows], np.float64)).all():
+        raise AssertionError(f"losses.json rows not finite or no valid "
+                             f"rows: {losses}")
+    for name in ("train", "valid"):
+        for r in losses[name]:
+            log(f"[train] {name} at step {r[0]}: ce {r[1]:.4f} dice "
+                f"{r[2]:.4f} focal {r[3]:.4f}")
+
+    pth = os.path.join(model_dir, summary["model_id"] + ".pth")
+    lcfg, _, predict = load_model(pth, Config(), device)
+    photo = np.random.default_rng(12).integers(
+        0, 255, (*TRAIN_PHOTO_HW, 3), dtype=np.uint8)
+    res = Segmenter(lcfg, predict, device, batch_size=16).segment_array(photo)
+    cm = res["class_map"]
+    if cm.shape != TRAIN_PHOTO_HW or int(cm.max()) >= lcfg.n_classes:
+        raise AssertionError(f"trained model's class map {cm.shape}")
+    log(f"[train] {os.path.basename(pth)} "
+        f"({os.path.getsize(pth) / 2 ** 20:.1f} MiB) loaded through "
+        f"tester.load_model and segmented a {TRAIN_PHOTO_HW[1]}x"
+        f"{TRAIN_PHOTO_HW[0]} photo: classes {np.unique(cm).tolist()}")
+
+    # FIXED_STEPS steps on one fixed batch, from the trained weights
+    model = summary["model"]
+    opt, sched = make_optimizer(cfg, model, 1)
+    step = make_train_step(cfg, model, opt, sched)
+    img = torch.from_numpy(db["img"][:cfg.batch_size]).to(device)
+    mask = torch.from_numpy(db["mask"][:cfg.batch_size]).to(device)
+    gen = torch.Generator().manual_seed(13)
+    ms, totals = [], []
+    for _ in range(FIXED_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = step(img, mask, gen)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        totals.append(float(metrics["total"]))
+    step_ms = float(np.median(ms[1:]))
+    first, last = np.mean(totals[:3]), np.mean(totals[-3:])
+    log(f"[train] {FIXED_STEPS} steps on one fixed batch of "
+        f"{cfg.batch_size}: ms {[round(v, 2) for v in ms]}; median after "
+        f"the first {step_ms:.3f} ms = {cfg.batch_size * 1e3 / step_ms:.2f}"
+        f" tiles/s; total loss {[round(v, 4) for v in totals]} (mean of "
+        f"the first 3 {first:.4f}, of the last 3 {last:.4f})")
+    # dropout and the flips make single steps noisy: compare means
+    if not np.isfinite(totals).all() or not last < first:
+        raise AssertionError(f"total loss did not fall: {totals}")
+    _profile_step(step, img, mask, gen, step_ms)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -304,11 +557,16 @@ def main() -> int:
         f"{torch.version.cuda}; python {sys.version.split()[0]}")
     phase_build()
     err, ms, plain_ms = phase_k1(device)
+    loss_err, dx_err, (fwd_ms, fwd_plain, bwd_ms, bwd_plain) = \
+        phase_k2(device)
     build_root = os.path.join(REPO, "pylc_tpu_torch", "_build")
     os.makedirs(build_root, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_root) as workdir:
         launches, pth = phase_slice(device, workdir)
         phase_cli(pth, workdir)
+    with tempfile.TemporaryDirectory(dir=build_root) as workdir:
+        k2a_launches, k2b_launches = phase_train(device, workdir)
+    loss_src = "pylc_tpu_torch/csrc/fused_loss.cu"
     print(json.dumps({"kernels": [{
         "name": "crf_iteration",
         "route": "cuda",
@@ -318,6 +576,24 @@ def main() -> int:
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,
+    }, {
+        "name": "fused_loss_forward",
+        "route": "cuda",
+        "source": loss_src,
+        "replaces": "pylc_tpu/ops/pallas/fused_loss.py:131",
+        "launches": k2a_launches,
+        "max_abs_err": loss_err,
+        "ms": fwd_ms,
+        "plain_ms": fwd_plain,
+    }, {
+        "name": "fused_loss_backward",
+        "route": "cuda",
+        "source": loss_src,
+        "replaces": "pylc_tpu/ops/pallas/fused_loss.py:307",
+        "launches": k2b_launches,
+        "max_abs_err": dx_err,
+        "ms": bwd_ms,
+        "plain_ms": bwd_plain,
     }]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

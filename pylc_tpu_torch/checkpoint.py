@@ -1,0 +1,156 @@
+"""Checkpointing and loss tracking.
+
+Port of ``pylc_tpu/checkpoint.py``.  ``RunningLoss`` is the same code,
+with the same ``losses.json``.  ``Checkpoint`` keeps the atomic writes
+(tmp + ``os.replace``) but writes torch files:
+
+  - ``checkpoint.pth``: {epoch, iter, model, optimizer, scheduler, meta},
+    written at every validation, for ``--resume``;
+  - ``<model_id>.pth``: {'model': state_dict, 'meta': cfg.to_meta()}, the
+    best model by validation Dice, in the reference schema that both the
+    port's and the JAX package's ``.pth`` loaders read.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn as nn
+
+from pylc_tpu_torch.config import Config
+
+
+def _atomic_write(path: str, data: bytes):
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(data)
+    os.replace(tmp, path)
+
+
+def _atomic_save(obj: Any, path: str):
+    tmp = path + ".tmp"
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
+
+
+def _cpu_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
+    return {k: v.detach().cpu() for k, v in model.state_dict().items()}
+
+
+class Checkpoint:
+    """Checkpoint manager for one model directory."""
+
+    def __init__(self, model_id: str, save_dir: str):
+        self.model_dir = os.path.join(save_dir, model_id)
+        os.makedirs(self.model_dir, exist_ok=True)
+        self.checkpoint_file = os.path.join(self.model_dir, "checkpoint.pth")
+        self.model_file = os.path.join(self.model_dir, model_id + ".pth")
+
+    def save(self, model: nn.Module, optimizer: torch.optim.Optimizer,
+             scheduler: torch.optim.lr_scheduler.LRScheduler, cfg: Config,
+             epoch: int, iteration: int, is_best: bool = False):
+        weights = _cpu_state_dict(model)
+        meta = cfg.to_meta()
+        _atomic_save({"epoch": epoch, "iter": iteration, "model": weights,
+                      "optimizer": optimizer.state_dict(),
+                      "scheduler": scheduler.state_dict(), "meta": meta},
+                     self.checkpoint_file)
+        if is_best:
+            _atomic_save({"model": weights, "meta": meta}, self.model_file)
+
+    def load(self, model: nn.Module, optimizer: torch.optim.Optimizer,
+             scheduler: torch.optim.lr_scheduler.LRScheduler
+             ) -> Optional[Dict[str, Any]]:
+        """Restore a checkpoint into ``model``, ``optimizer`` and
+        ``scheduler`` in place.  Returns {'epoch', 'iter', 'meta'}, or
+        None if there is no checkpoint."""
+        if not os.path.exists(self.checkpoint_file):
+            return None
+        device = next(model.parameters()).device
+        payload = torch.load(self.checkpoint_file, map_location=device,
+                             weights_only=False)
+        model.load_state_dict(payload["model"], strict=True)
+        optimizer.load_state_dict(payload["optimizer"])
+        scheduler.load_state_dict(payload["scheduler"])
+        return {"epoch": payload["epoch"], "iter": payload["iter"],
+                "meta": payload["meta"]}
+
+    def reset(self):
+        if os.path.exists(self.checkpoint_file):
+            os.remove(self.checkpoint_file)
+
+
+class RunningLoss:
+    """Interval-averaged loss tracker with best-dice checkpoint gating."""
+
+    def __init__(self, model_id: str, save_dir: str, resume: bool = False):
+        self.train = []
+        self.valid = []
+        self.intv = []
+        self.lr = []
+        self.avg_ce = 0.0
+        self.avg_dice = 1.0
+        self.avg_fl = 0.0
+        self.best_dice = 1.0
+        self.is_best = False
+        self.model_dir = os.path.join(save_dir, model_id)
+        os.makedirs(self.model_dir, exist_ok=True)
+        self.log_file = os.path.join(self.model_dir, "losses.json")
+        if os.path.exists(self.log_file):
+            if resume:
+                with open(self.log_file) as f:
+                    d = json.load(f)
+                self.train = d.get("train", [])
+                self.valid = d.get("valid", [])
+                self.best_dice = d.get("best_dice", 1.0)
+                self.lr = d.get("lr", [])
+            else:
+                os.remove(self.log_file)
+
+    def push(self, metrics: Dict[str, Any], weight: float = 1.0):
+        """Buffer one step's metrics.  Device scalars are stored as they
+        are; the host waits for them once per interval, in ``log``.
+
+        ``weight``: this batch's weight in the interval average —
+        validation passes its sample count, so a partial final batch
+        does not get full-batch influence on the best-dice gate."""
+        self.intv.append((metrics["ce"], metrics["dice"], metrics["focal"],
+                          weight))
+
+    def log(self, iteration: int, training: bool):
+        """Fold the interval buffer into a weighted average; update
+        best-dice on validation."""
+        if not self.intv:
+            if not training:
+                # an empty validation must not re-trigger a stale best
+                self.is_best = False
+            return
+        self.intv = [tuple(float(x) for x in row) for row in self.intv]
+        wsum = sum(row[3] for row in self.intv) or 1.0
+        ce, dice, fl = (sum(v * row[3] for v, row in
+                            zip(col, self.intv)) / wsum
+                        for col in zip(*(r[:3] for r in self.intv)))
+        self.avg_ce, self.avg_dice, self.avg_fl = ce, dice, fl
+        self.intv = []
+        row = (iteration, ce, dice, fl)
+        if training:
+            self.train.append(row)
+        else:
+            self.valid.append(row)
+            self.is_best = self.avg_dice < self.best_dice
+            if self.is_best:
+                self.best_dice = self.avg_dice
+
+    def save(self):
+        blob = json.dumps({
+            "train": self.train, "valid": self.valid,
+            "best_dice": self.best_dice, "lr": self.lr,
+        }).encode()
+        _atomic_write(self.log_file, blob)
+
+    def status(self, mode: str) -> str:
+        return (f"[{mode}] ce {self.avg_ce:.4f}  dice {self.avg_dice:.4f}  "
+                f"focal {self.avg_fl:.4f}  best-dice {self.best_dice:.4f}")

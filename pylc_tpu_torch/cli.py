@@ -1,8 +1,8 @@
 """CLI of the port: the JAX package's parser and flags, plus ``--device``.
 
-``python -m pylc_tpu_torch <mode> ... [--device cuda|cpu]``.  Only
-``test`` runs in the port so far; every other mode raises, naming the
-ROADMAP item that ports it.
+``python -m pylc_tpu_torch <mode> ... [--device cuda|cpu]``.  ``train``
+and ``test`` run in the port; every other mode raises, naming the ROADMAP
+item that ports it.  ``train --db`` reads an HDF5 DB, so it needs h5py.
 """
 
 from __future__ import annotations
@@ -21,7 +21,6 @@ NOT_PORTED = {
     "augment": "item 16 (augment_ops.py and augment.py)",
     "merge": "item 16 (augment_ops.py and augment.py)",
     "grayscale": "item 16 (augment_ops.py and augment.py)",
-    "train": "items 10-12 (losses, train_state.py, trainer.py)",
     "export": "item 19 (export.py, server.py)",
     "serve": "item 19 (export.py, server.py)",
 }
@@ -34,6 +33,14 @@ def run_test(args, device):
          save_logits=args.save_logits,
          aggregate_metrics=args.aggregate_metrics,
          use_crf=args.crf, device=device)
+
+
+def run_train(args, device):
+    from pylc_tpu_torch.trainer import train
+    cfg = _cfg_from_args(args)
+    summary = train(cfg, args.db, device=device)
+    print(f"\nTraining done: {summary['steps']} steps, best dice "
+          f"{summary['best_dice']:.4f}, {summary['wall_s']:.1f}s")
 
 
 def main(argv=None):
@@ -49,10 +56,13 @@ def main(argv=None):
             f"Queue 1 {NOT_PORTED[args.mode]}")
     if getattr(args, "n_devices", None) not in (None, 1):
         raise NotImplementedError(
-            "multi-GPU inference is ROADMAP Queue 1 item 18")
+            f"multi-GPU {args.mode} is ROADMAP Queue 1 item 18")
+    if getattr(args, "multihost", False):
+        raise NotImplementedError(
+            "multi-host training is ROADMAP Queue 1 item 18")
     device = resolve_device(dev_args.device)
     cfg = Config()
     for d in (cfg.root, cfg.db_dir, cfg.save_dir, cfg.model_dir,
               cfg.output_dir):
         os.makedirs(d, exist_ok=True)
-    run_test(args, device)
+    {"train": run_train, "test": run_test}[args.mode](args, device)

@@ -4,7 +4,8 @@ Port of the DeepLab parts of ``pylc_tpu/convert.py``.  The port's module
 names are the reference checkpoints' own, so a reference-schema ``.pth``
 ({'model': state_dict, 'meta': ...}) loads with ``strict=True``;
 ``state_dict_from_jax`` is the JAX package's exporter
-(``export_deeplab_pth``) without the file.
+(``export_deeplab_pth``) without the file; ``load_resnet101_imagenet``
+puts a torchvision-format ImageNet ResNet101 into a DeepLab's backbone.
 """
 
 from __future__ import annotations
@@ -88,6 +89,21 @@ def state_dict_from_jax(params: Mapping, batch_stats: Mapping
     sd["decoder.last_conv.8.bias"] = torch.tensor(
         np.asarray(dp["head"]["bias"]))
     return sd
+
+
+def load_resnet101_imagenet(pth_path: str, model: nn.Module) -> nn.Module:
+    """Load a torchvision-format ResNet101 state dict (the ImageNet
+    ``resnet101-5d3b4d8f.pth``) into ``model.backbone`` in place: the
+    ``fc.*`` head is dropped, every other key must match (strict)."""
+    data = load_reference_pth(pth_path)
+    if not isinstance(data, dict):
+        raise ValueError(
+            f"{pth_path}: expected a state_dict pickle, got "
+            f"{type(data).__name__} — not an ImageNet resnet101 checkpoint.")
+    sd = data if "conv1.weight" in data else data.get("state_dict", data)
+    sd = {k: v for k, v in sd.items() if not k.startswith("fc.")}
+    model.backbone.load_state_dict(sd, strict=True)
+    return model
 
 
 def load_pth_model(model_path: str, base_cfg: Optional[Config] = None

@@ -29,13 +29,51 @@ def get_activation(name: str) -> Callable:
     return ACTIVATIONS[name]
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train mode follows flax ``BatchNorm``.
+
+    It normalizes with the biased batch statistics, as torch does, but
+    moves ``running_var`` toward the biased batch variance, as flax does
+    (torch uses the unbiased one: n/(n-1) larger, 8/7 for the ASPP
+    image-pool BN at batch 8, whose n is the batch size).  With one value
+    per channel it returns the bias, as flax does, instead of raising.
+    Eval mode and the state_dict keys are torch's own."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        n = x.numel() // x.shape[1]
+        m = self.momentum
+        if n == 1:
+            # batch variance 0 and x - mean = 0: the output is the bias,
+            # and x keeps a (zero) gradient, as in flax
+            with torch.no_grad():
+                self.running_mean.mul_(1 - m).add_(
+                    x.detach().reshape(-1).float(), alpha=m)
+                self.running_var.mul_(1 - m)
+                self.num_batches_tracked.add_(1)
+            c = (1, -1, 1, 1)
+            return ((x - x) * self.weight.view(c)
+                    + self.bias.view(c)).to(x.dtype)
+        old_var = self.running_var.clone()
+        y = super().forward(x)
+        # torch set running_var = (1-m) old + m var * n/(n-1); rescale the
+        # batch part by (n-1)/n: (1-m) old + m var.  Through .data: the
+        # batch_norm node holds running_var (unused by its backward in
+        # train mode), and autograd would refuse a visible in-place change
+        self.running_var.data.mul_((n - 1) / n).add_(old_var,
+                                                     alpha=(1 - m) / n)
+        return y
+
+
 def make_norm(norm_type: str) -> Callable[[int], nn.Module]:
     """Normalizer constructor (channels -> module).
 
-    BatchNorm with torch's eps 1e-5 and running-stat momentum 0.1 (flax
-    momentum 0.9).  ``syncbatch`` is plain BatchNorm on one device."""
+    ``BatchNorm2d`` above, with torch's eps 1e-5 and running-stat momentum
+    0.1 (flax momentum 0.9).  ``syncbatch`` is plain BatchNorm on one
+    device."""
     if norm_type in ("batch", "syncbatch"):
-        return partial(nn.BatchNorm2d, eps=1e-5, momentum=0.1)
+        return partial(BatchNorm2d, eps=1e-5, momentum=0.1)
     raise NotImplementedError(
         f"normalizer '{norm_type}' is not ported yet (ROADMAP Queue 1 "
         "item 2: instance and layer norms, with the U-Nets of item 13)")

@@ -3,9 +3,9 @@
 Port of the TPU kernel ``pylc_tpu/ops/pallas/crf_kernel.py::crf_iteration``.
 The kernel is ``pylc_tpu_torch/csrc/crf_iteration.cu`` (its header says
 what bounds it and what the shared-memory halo does about that).  It is
-compiled with ``nvcc`` for ``sm_90a`` into ``pylc_tpu_torch/_build/`` on
-first use, from the checkout's own source, and called through ``ctypes``
-on PyTorch's current stream.
+compiled by ``_build`` (nvcc, ``sm_90a``) into ``pylc_tpu_torch/_build/``
+on first use, from the checkout's own source, and called through
+``ctypes`` on PyTorch's current stream.
 
 ``crf_iteration`` takes the plain torch version for a tensor on the CPU,
 and launches the kernel for a CUDA tensor; there is no other choice
@@ -17,61 +17,30 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-import os
-import shutil
-import subprocess
-from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
-_PKG = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-SOURCE = os.path.join(_PKG, "csrc", "crf_iteration.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
-LIBRARY = os.path.join(BUILD_DIR, "libcrf_iteration.so")
+from pylc_tpu_torch.ops.kernels import _build
+
+SOURCE = _build.source_path("crf_iteration")
 
 # bounds compiled into the kernel (kMaxC, kMaxG, kMaxR in the source)
 MAX_CLASSES = 16
 MAX_GUIDE = 4
 MAX_RADIUS = 8
 
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
-        return os.path.join(CUDA_HOME, "bin", "nvcc")
-    raise RuntimeError("nvcc not found: the CRF kernel is built with the "
-                       "CUDA toolkit's nvcc (set PATH or CUDA_HOME)")
-
-
-def build(force: bool = False) -> Tuple[str, str]:
+def build(force: bool = False):
     """Compile the kernel library if it is missing or older than its
-    source.  Returns (library path, nvcc's output: the ``-Xptxas -v``
-    register and shared-memory report; empty when nothing was built)."""
-    if (not force and os.path.exists(LIBRARY)
-            and os.path.getmtime(LIBRARY) >= os.path.getmtime(SOURCE)):
-        return LIBRARY, ""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIBRARY}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
-    os.replace(tmp, LIBRARY)  # atomic: no process loads a half-written file
-    return LIBRARY, proc.stdout + proc.stderr
+    source.  Returns (library path, nvcc's ``-Xptxas -v`` report; empty
+    when nothing was built)."""
+    return _build.build("crf_iteration", force)
 
 
 @functools.lru_cache(maxsize=1)
 def _library() -> ctypes.CDLL:
-    path, _ = build()
-    lib = ctypes.CDLL(path)
+    lib = _build.load("crf_iteration")
     vp, ci, cf, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
         ctypes.c_double
     lib.crf_iteration_f32.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci,

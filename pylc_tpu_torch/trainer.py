@@ -1,0 +1,166 @@
+"""Training loop: epochs over a tile DB with validation and checkpoints.
+
+Port of ``pylc_tpu/trainer.py`` on one device: train and validation
+partitions (0, 1 - partition) and (1 - partition, 1), DB meta
+rehydration (data fields only), the pretrained-encoder rule (a missing
+default path trains from scratch, a path or flag the user gave must
+exist), validation at the first epoch and after each epoch with the
+best model gated on validation Dice, a resume that completes exactly
+``n_epochs`` (DEVIATIONS F3), and metrics pulled to the host every
+``report`` steps.  The mesh, multi-host and sharded-validation code of
+the JAX trainer is ROADMAP Queue 1 item 18.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Dict, Optional, Union
+
+import numpy as np
+import torch
+
+from pylc_tpu_torch.checkpoint import Checkpoint, RunningLoss
+from pylc_tpu_torch.config import Config
+from pylc_tpu_torch.db.database import TileDB
+from pylc_tpu_torch.db.dataset import TileDataset
+from pylc_tpu_torch.device import resolve_device
+from pylc_tpu_torch.train_state import (
+    init_model, make_eval_step, make_lr_schedule, make_optimizer,
+    make_train_step,
+)
+
+RESNET101_IMAGENET = "./data/models/resnet101-5d3b4d8f.pth"
+FLIP_SEED = 1234
+
+
+def resolve_pretrained(cfg: Config) -> Optional[str]:
+    """The ImageNet encoder to start from, or None to train from scratch.
+
+    A missing default path is the normal train-from-scratch case; a path
+    the user gave, or the boolean ``--pretrained`` flag, must exist."""
+    if cfg.arch != "deeplab" or not cfg.pretrained:
+        return None
+    if cfg.backbone != "resnet":
+        raise NotImplementedError(
+            f"pretrained '{cfg.backbone}' encoders are not ported (ROADMAP "
+            "Queue 1 item 13)")
+    path = cfg.pretrained if isinstance(cfg.pretrained, str) else \
+        RESNET101_IMAGENET
+    if os.path.exists(path):
+        return path
+    explicit = cfg.pretrained is True or cfg.pretrained != RESNET101_IMAGENET
+    if explicit:
+        raise FileNotFoundError(
+            f"pretrained encoder requested but {path} does not exist; place "
+            "the ImageNet checkpoint there or drop the flag.")
+    return None
+
+
+def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+
+
+def train(cfg: Config, db: Union[str, Dict], verbose: bool = True,
+          device: Union[str, torch.device, None] = None) -> dict:
+    """Run the training job on one device (default ``cuda``).
+
+    ``db`` is an ``.h5`` path or an in-memory {'img', 'mask', 'meta'}
+    dict (``img`` [N, C, tile, tile] and ``mask`` [N, tile, tile] uint8).
+    Returns a summary dict."""
+    device = resolve_device(str(device or "cuda"))
+    src = {"data": db} if isinstance(db, dict) else {"path": db}
+    part = cfg.partition
+    tr_db = TileDB(**src, partition=(0.0, 1.0 - part), clip=cfg.clip)
+    va_db = TileDB(**src, partition=(1.0 - part, 1.0), clip=cfg.clip)
+
+    # DB data facts -> config; the user's network settings win
+    cfg = tr_db.get_meta(base=cfg, data_only=True)
+    model_id = cfg.gen_model_id()
+    cfg.id = model_id
+
+    batch = cfg.batch_size
+    tr_ds = TileDataset(tr_db, batch_size=batch, shuffle=cfg.shuffle,
+                        drop_last=True, chunk_size=cfg.buffer_size)
+    # validation keeps partial batches: a small DB's split can be smaller
+    # than one batch, and dropping it would starve validation
+    va_ds = TileDataset(va_db, batch_size=min(batch, va_db.partition_size)
+                        or 1, shuffle=False, drop_last=False,
+                        chunk_size=cfg.buffer_size, drop_tail=False)
+    steps_per_epoch = max(1, tr_ds.n_batches)
+
+    # resolved before the (expensive) model build, so a bad path fails fast
+    pretrained_path = resolve_pretrained(cfg)
+    model = init_model(cfg, seed=0)
+    if pretrained_path:
+        from pylc_tpu_torch.convert import load_resnet101_imagenet
+        load_resnet101_imagenet(pretrained_path, model)
+        if verbose:
+            print(f"Loaded pretrained encoder from {pretrained_path}")
+    model.to(device, memory_format=torch.channels_last)
+    optimizer, scheduler = make_optimizer(cfg, model, steps_per_epoch)
+    train_step = make_train_step(cfg, model, optimizer, scheduler)
+    eval_step = make_eval_step(cfg, model)
+    lr_sched = make_lr_schedule(cfg, steps_per_epoch)
+
+    ckpt = Checkpoint(model_id, cfg.save_dir)
+    loss = RunningLoss(model_id, cfg.save_dir, resume=cfg.resume_checkpoint)
+    epoch0 = it = 0
+    if cfg.resume_checkpoint:
+        restored = ckpt.load(model, optimizer, scheduler)
+        if restored is not None:
+            epoch0, it = restored["epoch"], restored["iter"]
+            if verbose:
+                print(f"Resumed from epoch {epoch0} (iter {it}).")
+    else:
+        ckpt.reset()
+
+    def validate(epoch: int):
+        """Validate, then checkpoint (the reference saves at every
+        validation)."""
+        n_val = 0
+        for img, mask in va_ds:
+            metrics = eval_step(_to_device(img, device),
+                                _to_device(mask, device))
+            loss.push(metrics, weight=float(img.shape[0]))
+            n_val += 1
+        if n_val == 0 and verbose:
+            print("  warning: validation split is empty")
+        loss.log(it, training=False)
+        ckpt.save(model, optimizer, scheduler, cfg, epoch, it,
+                  is_best=loss.is_best)
+        loss.save()
+        if verbose:
+            print(loss.status("valid"))
+
+    t_start = time.time()
+    flip_gen = torch.Generator().manual_seed(FLIP_SEED)
+    for epoch in range(epoch0, cfg.n_epochs):
+        if verbose:
+            print(f"\nEpoch {epoch + 1}/{cfg.n_epochs}  (steps/epoch "
+                  f"{steps_per_epoch}, lr {lr_sched(it):.2e}, {device})")
+        loss.lr.append((it, lr_sched(it)))
+        if epoch == epoch0:
+            validate(epoch)
+        for img, mask in tr_ds:
+            metrics = train_step(_to_device(img, device),
+                                 _to_device(mask, device), flip_gen)
+            it += 1
+            loss.push(metrics)
+            if it % cfg.report == 0:
+                loss.log(it, training=True)
+                loss.save()
+                if verbose:
+                    print(f"  step {it}: {loss.status('train')}")
+        loss.log(it, training=True)
+        validate(epoch + 1)
+
+    return {
+        "model_id": model_id,
+        "epochs": cfg.n_epochs - epoch0,
+        "steps": it,
+        "best_dice": loss.best_dice,
+        "wall_s": time.time() - t_start,
+        "model": model,
+        "config": cfg,
+    }

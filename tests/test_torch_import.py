@@ -1,5 +1,6 @@
-"""The PyTorch port imports with jax, flax and optax blocked, and its
-sources never import them."""
+"""The PyTorch port imports with jax, flax, optax and h5py blocked (the
+card's machine has no flax or h5py), trains from an in-memory DB there,
+and its sources never import jax."""
 
 import os
 import re
@@ -21,19 +22,23 @@ MODULES = [
     "pylc_tpu_torch.ops.tiles", "pylc_tpu_torch.ops.crf",
     "pylc_tpu_torch.ops.kernels.crf_kernel",
     "pylc_tpu_torch.utils.imageio",
+    "pylc_tpu_torch.ops.losses", "pylc_tpu_torch.ops.kernels._build",
+    "pylc_tpu_torch.ops.kernels.fused_loss", "pylc_tpu_torch.db",
+    "pylc_tpu_torch.db.database", "pylc_tpu_torch.db.dataset",
+    "pylc_tpu_torch.checkpoint", "pylc_tpu_torch.trainer",
 ]
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "h5py")
 
 
 def test_port_imports_without_jax():
     code = (
         "import importlib, sys\n"
-        "for m in ('jax', 'jaxlib', 'flax', 'optax'):\n"
+        f"for m in {BLOCKED!r}:\n"
         "    sys.modules[m] = None\n"
         f"for m in {MODULES!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m, v in sys.modules.items() if v is not None\n"
-        "             and m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
-        "                                     'optax', 'cv2', 'triton'))\n"
+        f"             and m.split('.')[0] in {BLOCKED + ('cv2', 'triton')!r})\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -54,3 +59,36 @@ def test_port_sources_never_import_jax():
                     if pat.search(fh.read()):
                         found.append(os.path.relpath(path, REPO))
     assert not found, found
+
+
+def test_in_memory_train_runs_without_jax_flax_h5py(tmp_path):
+    """The card's machine's situation: an in-memory DB trains for one
+    epoch (32 px, 10 tiles, batch 2, on the CPU) and writes its best
+    model, with jax, flax and h5py all absent."""
+    code = (
+        "import json, os, sys\n"
+        f"for m in {BLOCKED!r}:\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np, torch\n"
+        "torch.set_num_threads(1)\n"
+        "from pylc_tpu_torch.config import Config\n"
+        "from pylc_tpu_torch.trainer import train\n"
+        "cfg = Config().replace(tile_size=32, batch_size=2, n_epochs=1,\n"
+        "                       compute_dtype='float32',\n"
+        f"                       save_dir={str(tmp_path)!r})\n"
+        "rng = np.random.default_rng(0)\n"
+        "db = {'img': rng.integers(0, 256, (10, 3, 32, 32), dtype=np.uint8),\n"
+        "      'mask': rng.integers(0, 9, (10, 32, 32), dtype=np.uint8),\n"
+        "      'meta': cfg.replace(id='mem').to_meta()}\n"
+        "s = train(cfg, db, verbose=False, device='cpu')\n"
+        "d = os.path.join(cfg.save_dir, s['model_id'])\n"
+        "assert os.path.exists(os.path.join(d, s['model_id'] + '.pth'))\n"
+        "assert json.load(open(os.path.join(d, 'losses.json')))['valid']\n"
+        f"assert not [m for m in {BLOCKED!r} if sys.modules.get(m)]\n"
+        "print('ok', s['steps'])\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok 4"

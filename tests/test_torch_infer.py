@@ -127,7 +127,10 @@ def test_cli_refuses_missing_card_and_unported_modes(weights, tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(["test", "-l", pth, "-i", str(tmp_path)])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["train", "--db", "x.h5", "--device", "cpu"])
+        main(["profile", "--db", "x.h5", "--device", "cpu"])
+    for flag in (["--n_devices", "2"], ["--multihost"]):
+        with pytest.raises(NotImplementedError, match="item 18"):
+            main(["train", "--db", "x.h5", "--device", "cpu", *flag])
     ckpt = tmp_path / "m.ckpt"
     ckpt.touch()
     with pytest.raises(NotImplementedError, match="ROADMAP"):

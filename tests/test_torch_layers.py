@@ -83,8 +83,9 @@ def test_batchnorm_eval_matches_jax():
 
 
 def test_batchnorm_running_mean_momentum_matches_jax():
-    """One train-mode step moves the running mean by the same 0.1 of the
-    batch mean in both packages (flax momentum 0.9 = torch 0.1)."""
+    """One train-mode step moves the running mean and variance by the
+    same 0.1 of the batch statistics in both packages (flax momentum 0.9
+    = torch 0.1), the variance being the biased one, as flax takes it."""
     x = np.random.default_rng(3).standard_normal(
         (4, 3, 3, 2)).astype(np.float32) + 2
     norm = partial(fnn.BatchNorm, use_running_average=False, momentum=0.9,
@@ -96,6 +97,54 @@ def test_batchnorm_running_mean_momentum_matches_jax():
     np.testing.assert_allclose(bn.running_mean.numpy(),
                                np.asarray(upd["batch_stats"]["mean"]),
                                rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(bn.running_var.numpy(),
+                               np.asarray(upd["batch_stats"]["var"]),
+                               rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1, 5), (3, 2, 2, 5)])
+def test_batchnorm_train_output_and_gradients_match_jax(shape):
+    """Train-mode output, running stats and gradients against flax, down
+    to one value per channel, where flax returns the bias (torch's own
+    BatchNorm2d raises there)."""
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal(shape).astype(np.float32) * 2 + 1
+    C = shape[-1]
+    scale, bias = (rng.standard_normal(C).astype(np.float32) for _ in "ab")
+    mean = rng.standard_normal(C).astype(np.float32)
+    var = rng.random(C).astype(np.float32) + 0.5
+    norm = partial(fnn.BatchNorm, use_running_average=False, momentum=0.9,
+                   epsilon=1e-5)
+    params = {"scale": jnp.asarray(scale), "bias": jnp.asarray(bias)}
+
+    def jfwd(p, xx):
+        y, upd = norm().apply({"params": p, "batch_stats": {
+            "mean": mean, "var": var}}, xx, mutable=["batch_stats"])
+        return jnp.sum(y * jnp.arange(y.size).reshape(y.shape)), (y, upd)
+
+    (_, (want, upd)), (gp, gx) = jax.value_and_grad(
+        jfwd, argnums=(0, 1), has_aux=True)(params, jnp.asarray(x))
+    bn = tl.make_norm("batch")(C).train()
+    bn.load_state_dict({"weight": torch.tensor(scale),
+                        "bias": torch.tensor(bias),
+                        "running_mean": torch.tensor(mean),
+                        "running_var": torch.tensor(var)}, strict=False)
+    xt = _nchw(x).requires_grad_(True)
+    y = bn(xt)
+    (_nchw(np.arange(y.numel(), dtype=np.float32).reshape(shape))
+     * y).sum().backward()
+    np.testing.assert_allclose(_nhwc(y), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    for name, key in (("running_mean", "mean"), ("running_var", "var")):
+        np.testing.assert_allclose(getattr(bn, name).numpy(),
+                                   np.asarray(upd["batch_stats"][key]),
+                                   rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(_nhwc(xt.grad), np.asarray(gx), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(bn.weight.grad.numpy(),
+                               np.asarray(gp["scale"]), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(bn.bias.grad.numpy(), np.asarray(gp["bias"]),
+                               rtol=1e-5)
 
 
 @pytest.mark.parametrize("name", sorted(jl.ACTIVATIONS))

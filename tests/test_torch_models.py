@@ -183,7 +183,8 @@ def test_prepare_batch_matches_jax(ch, default):
     img = np.random.default_rng(4).integers(
         0, 256, (2, 4, 5, ch), dtype=np.uint8)
     want, _ = _prepare_batch(cfg, jnp.asarray(img), None, None)
-    got = prepare_batch(cfg, torch.from_numpy(img))
+    got, no_mask = prepare_batch(cfg, torch.from_numpy(img))
+    assert no_mask is None
     assert got.shape == (2, 4, 5, 3)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
                                atol=1e-6)

@@ -1,0 +1,232 @@
+"""The port's tile DB, trainer, checkpoints, ImageNet loader and ``train``
+CLI, against the JAX package where both have the piece.
+
+Training runs on the CPU at 32 px tiles, batch 2, from a 10-tile DB (8
+train, 2 validation tiles).  The best model a port run writes loads in
+both packages' testers."""
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import cv2
+import numpy as np
+import pytest
+import torch
+
+from pylc_tpu.config import Config
+from pylc_tpu.db.database import TileDB as JaxTileDB
+from pylc_tpu.db.dataset import TileDataset as JaxTileDataset
+from pylc_tpu_torch.db import TileDB, TileDataset
+from pylc_tpu_torch.models.registry import build_model
+from pylc_tpu_torch.trainer import train
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TILE, N_TILES, BATCH = 32, 10, 2
+
+
+def _cfg(tmp, **kw):
+    return Config().replace(tile_size=TILE, batch_size=BATCH, n_epochs=1,
+                            compute_dtype="float32", save_dir=str(tmp),
+                            **kw)
+
+
+def _tiles(n=N_TILES, tile=TILE, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 256, (n, 3, tile, tile), dtype=np.uint8),
+            rng.integers(0, 9, (n, tile, tile), dtype=np.uint8))
+
+
+@pytest.fixture(scope="module")
+def h5_db(tmp_path_factory):
+    imgs, masks = _tiles()
+    path = str(tmp_path_factory.mktemp("db") / "tiles.h5")
+    JaxTileDB.save(path, imgs, masks, Config().replace(tile_size=TILE,
+                                                       id="_db_test"))
+    return path
+
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory, h5_db):
+    save = tmp_path_factory.mktemp("save")
+    cfg = _cfg(save)
+    summary = train(cfg, h5_db, verbose=False, device="cpu")
+    return cfg, summary
+
+
+def _batches(ds, epochs=2):
+    return [(i.copy(), m.copy()) for _ in range(epochs) for i, m in ds]
+
+
+@pytest.mark.parametrize("source,shuffle,part", [
+    ("h5", False, (0.0, 0.8)), ("h5", True, (0.0, 0.8)),
+    ("memory", False, (0.8, 1.0)), ("memory", True, (0.0, 1.0))])
+def test_tile_db_and_dataset_match_jax(h5_db, source, shuffle, part):
+    """Same partition (ceil indices), chunk order, per-epoch seeded
+    shuffle and batches as the JAX TileDB/TileDataset, over two epochs."""
+    if source == "h5":
+        dbs = [cls(h5_db, partition=part) for cls in (TileDB, JaxTileDB)]
+    else:
+        imgs, masks = _tiles(n=23, seed=1)
+        data = {"img": imgs, "mask": masks, "meta": Config().to_meta()}
+        dbs = [cls(data=data, partition=part) for cls in (TileDB, JaxTileDB)]
+    ours, theirs = dbs
+    assert (ours.start, ours.end, ours.partition_size) == \
+        (theirs.start, theirs.end, theirs.partition_size)
+    kw = dict(batch_size=3, shuffle=shuffle, chunk_size=4, seed=5,
+              drop_last=not shuffle)
+    got = _batches(TileDataset(ours, **kw))
+    want = _batches(JaxTileDataset(theirs, **kw))
+    assert len(got) == len(want) > 0
+    for (gi, gm), (wi, wm) in zip(got, want):
+        np.testing.assert_array_equal(gi, wi)
+        np.testing.assert_array_equal(gm, wm)
+    for shard in ((0, 2), (1, 2)):
+        assert ours.shard_range(shard, drop_tail=False) == \
+            theirs.shard_range(shard, drop_tail=False)
+
+
+def test_tile_db_needs_exactly_one_source():
+    with pytest.raises(ValueError, match="exactly one"):
+        TileDB()
+
+
+def test_train_writes_losses_and_best_model(trained):
+    cfg, summary = trained
+    assert summary["steps"] == 4 and summary["epochs"] == 1
+    model_dir = os.path.join(cfg.save_dir, summary["model_id"])
+    with open(os.path.join(model_dir, "losses.json")) as f:
+        losses = json.load(f)
+    assert len(losses["valid"]) == 2      # epoch 0 and after epoch 1
+    assert losses["train"] and losses["best_dice"] < 1.0
+    assert np.isfinite(np.asarray([r[1:] for r in losses["train"]
+                                   + losses["valid"]])).all()
+    best = torch.load(os.path.join(model_dir, summary["model_id"] + ".pth"),
+                      weights_only=True)
+    assert set(best) == {"model", "meta"}
+    assert best["meta"]["tile_size"] == TILE
+    ckpt = torch.load(os.path.join(model_dir, "checkpoint.pth"),
+                      weights_only=True)
+    assert (ckpt["epoch"], ckpt["iter"]) == (1, 4)
+    assert {"model", "optimizer", "scheduler", "meta"} <= set(ckpt)
+
+
+def test_resume_runs_exactly_n_epochs(tmp_path, h5_db):
+    cfg = _cfg(tmp_path)
+    train(cfg, h5_db, verbose=False, device="cpu")
+    summary = train(cfg.replace(n_epochs=2, resume_checkpoint=True), h5_db,
+                    verbose=False, device="cpu")
+    assert summary["epochs"] == 1          # 2 - the 1 already run
+    assert summary["steps"] == 8
+    with open(os.path.join(str(tmp_path), summary["model_id"],
+                           "losses.json")) as f:
+        losses = json.load(f)
+    assert [r[0] for r in losses["valid"]] == [0, 4, 4, 8]
+    assert [step for step, _ in losses["lr"]] == [0, 4]
+    # step_lr: the resumed epoch runs at lr * gamma
+    assert losses["lr"][1][1] == pytest.approx(cfg.lr * cfg.gamma)
+
+
+def test_explicit_pretrained_path_must_exist(tmp_path, h5_db):
+    for pretrained in (str(tmp_path / "missing.pth"), True):
+        with pytest.raises(FileNotFoundError, match="pretrained"):
+            train(_cfg(tmp_path, pretrained=pretrained), h5_db,
+                  verbose=False, device="cpu")
+
+
+@dataclasses.dataclass(frozen=True)
+class _State:
+    """The two fields of a JAX TrainState the ImageNet loader touches."""
+    params: dict
+    batch_stats: dict
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
+
+def test_resnet101_imagenet_loader_matches_jax(tmp_path):
+    from pylc_tpu.convert import convert_resnet_backbone
+    from pylc_tpu.convert import load_resnet101_imagenet as jax_load
+    from pylc_tpu_torch.convert import (load_resnet101_imagenet,
+                                        resnet_state_dict)
+    cfg = Config().replace(tile_size=TILE)
+    gen = torch.Generator().manual_seed(3)
+    sd = {k: torch.randn(v.shape, generator=gen) if v.is_floating_point()
+          else v for k, v in build_model(cfg).backbone.state_dict().items()}
+    sd["fc.weight"] = torch.randn(1000, 2048, generator=gen)
+    sd["fc.bias"] = torch.randn(1000, generator=gen)
+    path = str(tmp_path / "resnet101-test.pth")
+    torch.save(sd, path)
+
+    model = build_model(cfg)
+    load_resnet101_imagenet(path, model)
+    got = model.backbone.state_dict()
+    for k, v in got.items():
+        assert torch.equal(v, sd[k]), k
+
+    p, s = convert_resnet_backbone({k: v for k, v in sd.items()
+                                    if not k.startswith("fc.")})
+    zeros = _State({"backbone": jax_tree_zeros(p)},
+                   {"backbone": jax_tree_zeros(s)})
+    state = jax_load(path, zeros)
+    want = resnet_state_dict(state.params["backbone"],
+                             state.batch_stats["backbone"])
+    assert set(want) <= set(got)
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
+
+    torch.save({**sd, "extra.weight": torch.zeros(1)}, path)
+    with pytest.raises(RuntimeError, match="extra"):
+        load_resnet101_imagenet(path, build_model(cfg))
+
+
+def jax_tree_zeros(tree):
+    return {k: jax_tree_zeros(v) if isinstance(v, dict) else np.zeros_like(v)
+            for k, v in tree.items()}
+
+
+def test_trained_pth_loads_in_both_testers(trained, tmp_path):
+    """The port's best model in the reference schema: the port's tester
+    and the JAX package's give the same class map on one photo."""
+    from pylc_tpu.tester import test as jax_test
+    from pylc_tpu_torch.tester import test as port_test
+    cfg, summary = trained
+    pth = os.path.join(cfg.save_dir, summary["model_id"],
+                       summary["model_id"] + ".pth")
+    img = np.random.default_rng(4).integers(0, 256, (64, 96, 3),
+                                            dtype=np.uint8)
+    photo = str(tmp_path / "photo.jpg")
+    cv2.imwrite(photo, img)
+    masks = {}
+    for name, run, kw in (("port", port_test, {"device":
+                                               torch.device("cpu")}),
+                          ("jax", jax_test, {"n_devices": 1,
+                                             "verbose": False})):
+        out = tmp_path / name
+        # f32 in both: their bf16 paths round in different places
+        run(Config().replace(output_dir=str(out), compute_dtype="float32"),
+            pth, photo, scale=1.0, **kw)
+        (mask,) = (out / summary["model_id"] / "masks").iterdir()
+        masks[name] = cv2.imread(str(mask))
+    assert masks["port"].shape == (64, 96, 3)
+    agree = np.mean(np.all(masks["port"] == masks["jax"], axis=-1))
+    assert agree >= 0.999, agree
+
+
+def test_train_cli_runs_on_the_cpu(tmp_path, h5_db):
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run(
+        [sys.executable, "-m", "pylc_tpu_torch", "train", "--db", h5_db,
+         "--batch_size", "2", "--n_epochs", "1", "--report", "2",
+         "--device", "cpu"], cwd=str(tmp_path), env=env,
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "Training done: 4 steps" in out.stdout
+    model_id = Config().gen_model_id()
+    model_dir = tmp_path / "data" / "save" / model_id
+    assert (model_dir / f"{model_id}.pth").exists()
+    assert json.loads((model_dir / "losses.json").read_text())["valid"]
