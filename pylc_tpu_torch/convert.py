@@ -3,24 +3,54 @@
 Port of the DeepLab parts of ``pylc_tpu/convert.py``.  The port's module
 names are the reference checkpoints' own, so a reference-schema ``.pth``
 ({'model': state_dict, 'meta': ...}) loads with ``strict=True``;
-``state_dict_from_jax`` is the JAX package's exporter
-(``export_deeplab_pth``) without the file; ``load_resnet101_imagenet``
-puts a torchvision-format ImageNet ResNet101 into a DeepLab's backbone.
+``load_reference_pth`` unpickles one whose ``meta`` is the reference's
+``config.Parameters``; ``state_dict_from_jax`` is the JAX package's
+exporter (``export_deeplab_pth``) without the file;
+``load_resnet101_imagenet`` puts a torchvision-format ImageNet ResNet101
+into a DeepLab's backbone.
 """
 
 from __future__ import annotations
 
+import sys
+import types
 from collections import OrderedDict
 from functools import partial
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 
-from pylc_tpu.convert import load_reference_pth
 from pylc_tpu_torch.config import Config
 from pylc_tpu_torch.models.registry import build_model
+
+
+class _StubParameters:
+    """Attribute bag that stands in for the reference's
+    ``config.Parameters``, so that its pickles load without the
+    reference's code."""
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+
+
+def load_reference_pth(path: str) -> Dict[str, Any]:
+    """``torch.load`` a reference ``.pth`` whose ``meta`` is a pickled
+    ``config.Parameters``: a stub module named ``config`` holds the class
+    while the file loads.  Returns the raw dict; the tensors stay on the
+    CPU.  Like any pickle, load only files you trust."""
+    stub = types.ModuleType("config")
+    stub.Parameters = _StubParameters
+    had = sys.modules.get("config")
+    sys.modules["config"] = stub
+    try:
+        return torch.load(path, map_location="cpu", weights_only=False)
+    finally:
+        if had is not None:
+            sys.modules["config"] = had
+        else:
+            del sys.modules["config"]
 
 
 def _put_conv(sd: Dict, key: str, p: Mapping):

@@ -16,7 +16,7 @@ from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
-from pylc_tpu_torch.config import Config
+from pylc_tpu_torch.config import DATA_META_FIELDS, Config
 
 
 class TileDB:
@@ -66,7 +66,6 @@ class TileDB:
 
         data_only=True applies only DATA_META_FIELDS so DB metadata
         cannot override user-chosen network settings in ``base``."""
-        from pylc_tpu.config import DATA_META_FIELDS
         fields = DATA_META_FIELDS if data_only else None
         if self.path:
             import h5py
@@ -74,7 +73,7 @@ class TileDB:
                 attr = f.attrs.get("meta")
             return Config.from_meta_json(attr, base, fields)
         meta = self.data["meta"]
-        if isinstance(meta, Config):
+        if not isinstance(meta, dict):  # a config object, of either package
             return meta
         return Config.from_meta(meta, base, fields)
 
@@ -171,8 +170,8 @@ class TileDB:
                              chunks=True, data=imgs)
             f.create_dataset("mask", masks.shape, compression="gzip",
                              chunks=True, data=masks)
-            f.attrs["meta"] = meta.to_meta_json() \
-                if isinstance(meta, Config) else json.dumps(meta)
+            f.attrs["meta"] = json.dumps(meta) if isinstance(meta, dict) \
+                else meta.to_meta_json()
         # atomic replace so a crashed write never leaves a torn DB
         os.replace(tmp, file_path)
         return file_path

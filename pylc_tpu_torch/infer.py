@@ -11,7 +11,7 @@ current stream, and only the class-map copy to the host waits for them.
     -> overlap-average stitch into an f32 canvas
     -> optional dense-CRF mean-field refinement (kernel K1)
     -> uint8 argmax -> one copy of the class map to the host
-  -> native palette colourize on the host.
+  -> palette colourize on the host (``native.colourize``).
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from pylc_tpu import native
+from pylc_tpu_torch import native
 from pylc_tpu_torch.config import Config
 from pylc_tpu_torch.ops.tiles import grid_dims, stitch_probs, unfold_tiles
 from pylc_tpu_torch.utils.imageio import adjust_to_tile, get_image

@@ -1,11 +1,13 @@
-"""Build and load the port's CUDA kernels: ``nvcc`` into a ``ctypes``
-library, one library per source.
+"""Build and load the port's native code: one ``ctypes`` library per
+source under ``csrc/``.
 
-Each ``csrc/<name>.cu`` has a plain C interface and is compiled for
-``sm_90a`` (no fast math) into the git-ignored ``pylc_tpu_torch/_build/``
-on first use, from the checkout's own source.  A library is rebuilt when
-its source is newer, and written under a temporary name and renamed, so
-no process ever loads a half-written file.  Nothing here runs at import.
+Each ``csrc/<name>.cu`` (a CUDA kernel) has a plain C interface and is
+compiled by ``nvcc`` for ``sm_90a`` (no fast math); each
+``csrc/<name>.cpp`` (host code) by ``g++``.  Libraries go into the
+git-ignored ``pylc_tpu_torch/_build/`` on first use, from the checkout's
+own source.  A library is rebuilt when its source is newer, and written
+under a temporary name and renamed, so no process ever loads a
+half-written file.  Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -24,10 +26,14 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+GXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 
 
 def source_path(name: str) -> str:
-    return os.path.join(CSRC_DIR, f"{name}.cu")
+    """``csrc/<name>.cu`` if there is one, else ``csrc/<name>.cpp``."""
+    cu = os.path.join(CSRC_DIR, f"{name}.cu")
+    return cu if os.path.exists(cu) else os.path.join(CSRC_DIR,
+                                                      f"{name}.cpp")
 
 
 def library_path(name: str) -> str:
@@ -45,27 +51,39 @@ def _nvcc() -> str:
                        "the CUDA toolkit's nvcc (set PATH or CUDA_HOME)")
 
 
+def gxx() -> str:
+    """Path of ``g++``, or "" where the host has none."""
+    return shutil.which("g++") or ""
+
+
 def build(name: str, force: bool = False) -> Tuple[str, str]:
-    """Compile ``csrc/<name>.cu`` if its library is missing or older than
-    the source.  Returns (library path, nvcc's output: the ``-Xptxas -v``
-    register and shared-memory report; empty when nothing was built)."""
+    """Compile ``csrc/<name>.cu`` (nvcc) or ``csrc/<name>.cpp`` (g++) if
+    its library is missing or older than the source.  Returns (library
+    path, the compiler's output: for nvcc the ``-Xptxas -v`` register and
+    shared-memory report; empty when nothing was built)."""
     source, library = source_path(name), library_path(name)
     if (not force and os.path.exists(library)
             and os.path.getmtime(library) >= os.path.getmtime(source)):
         return library, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{library}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, source],
-                          capture_output=True, text=True)
+    if source.endswith(".cu"):
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, source]
+    else:
+        if not gxx():
+            raise RuntimeError(f"g++ not found: cannot build {source}")
+        cmd = [gxx(), *GXX_FLAGS, "-o", tmp, source]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
+        raise RuntimeError(f"{os.path.basename(cmd[0])} failed on "
+                           f"{source}:\n{proc.stderr}")
     os.replace(tmp, library)  # atomic: no process loads a half-written file
     return library, proc.stdout + proc.stderr
 
 
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
-    """The built library of ``csrc/<name>.cu``, built first if needed.
+    """The built library of ``csrc/<name>``, built first if needed.
     The caller declares each function's ``argtypes`` and ``restype``."""
     path, _ = build(name)
     return ctypes.CDLL(path)

@@ -2,10 +2,13 @@
 
 Port of the TPU kernel ``pylc_tpu/ops/pallas/crf_kernel.py::crf_iteration``.
 The kernel is ``pylc_tpu_torch/csrc/crf_iteration.cu`` (its header says
-what bounds it and what the shared-memory halo does about that).  It is
-compiled by ``_build`` (nvcc, ``sm_90a``) into ``pylc_tpu_torch/_build/``
-on first use, from the checkout's own source, and called through
-``ctypes`` on PyTorch's current stream.
+what bounds it and what its design does about that): a register-tiled
+kernel with compile-time sizes for the (C, G, r) of ``TILED_SIZES``, the
+sizes the package uses, and a generic one-thread-per-pixel kernel for
+every other size within the bounds.  ``variant`` says which of the two a
+size gets.  The library is compiled by ``_build`` (nvcc, ``sm_90a``) into
+``pylc_tpu_torch/_build/`` on first use, from the checkout's own source,
+and called through ``ctypes`` on PyTorch's current stream.
 
 ``crf_iteration`` takes the plain torch version for a tensor on the CPU,
 and launches the kernel for a CUDA tensor; there is no other choice
@@ -29,6 +32,16 @@ SOURCE = _build.source_path("crf_iteration")
 MAX_CLASSES = 16
 MAX_GUIDE = 4
 MAX_RADIUS = 8
+# (C, G, r) with a tiled instantiation (PYLC_K1_TILED_SIZES in the source):
+# both schemas' class counts, an RGB or a grayscale guide, the default radius
+TILED_SIZES = frozenset({(9, 3, 3), (11, 3, 3), (9, 1, 3), (11, 1, 3)})
+
+
+def variant(C: int, G: int, r: int) -> str:
+    """Name of the kernel that a [C, H, W] distribution with a G-channel
+    guide and radius r runs on."""
+    return f"tiled<C={C},G={G},R={r}>" if (C, G, r) in TILED_SIZES \
+        else "generic"
 
 
 def build(force: bool = False):
@@ -44,8 +57,18 @@ def _library() -> ctypes.CDLL:
     vp, ci, cf, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
         ctypes.c_double
     lib.crf_iteration_f32.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                                      cd, cf, cd, cf, cf, cf, vp]
+                                      cd, cf, cd, cf, cf, cf, ci, vp]
     lib.crf_iteration_f32.restype = ci
+    lib.crf_iteration_is_tiled.argtypes = [ci, ci, ci]
+    lib.crf_iteration_is_tiled.restype = ci
+    for C in range(1, MAX_CLASSES + 1):
+        for G in range(1, MAX_GUIDE + 1):
+            for r in range(MAX_RADIUS + 1):
+                if bool(lib.crf_iteration_is_tiled(C, G, r)) != \
+                        ((C, G, r) in TILED_SIZES):
+                    raise RuntimeError(
+                        "crf_iteration.cu's PYLC_K1_TILED_SIZES disagrees "
+                        f"with TILED_SIZES at (C, G, r) = {(C, G, r)}")
     return lib
 
 
@@ -82,21 +105,8 @@ def crf_iteration_reference(q: torch.Tensor, g: torch.Tensor,
     return torch.softmax(logits, dim=0)
 
 
-def crf_iteration(q: torch.Tensor, g: torch.Tensor, u: torch.Tensor, r: int,
-                  sigma_spatial_app: float, sigma_color: float,
-                  sigma_spatial_sm: float, w_app: float, w_sm: float,
-                  eps: float = 1e-8) -> torch.Tensor:
-    """One mean-field iteration, channel-major: q, u [C, H, W] and
-    g [G, H, W] f32 -> [C, H, W] f32.
-
-    A CPU tensor goes through ``crf_iteration_reference``; a CUDA tensor
-    through the kernel, or this raises."""
-    if q.device.type == "cpu":
-        return crf_iteration_reference(q, g, u, r, sigma_spatial_app,
-                                       sigma_color, sigma_spatial_sm, w_app,
-                                       w_sm, eps)
-    if q.device.type != "cuda":
-        raise ValueError(f"crf_iteration: no kernel for device {q.device}")
+def _check(q: torch.Tensor, g: torch.Tensor, u: torch.Tensor, r: int):
+    """Validate the kernel's operands; returns (C, G, H, W)."""
     for name, t in (("q", q), ("g", g), ("u", u)):
         if t.device != q.device:
             raise ValueError(f"crf_iteration: {name} on {t.device}, "
@@ -119,6 +129,14 @@ def crf_iteration(q: torch.Tensor, g: torch.Tensor, u: torch.Tensor, r: int,
             f"crf_iteration: C={C}, G={G}, r={r} outside the kernel's "
             f"bounds (C <= {MAX_CLASSES}, G <= {MAX_GUIDE}, "
             f"r <= {MAX_RADIUS})")
+    return C, G, H, W
+
+
+def _launch(q, g, u, r, sigma_spatial_app, sigma_color, sigma_spatial_sm,
+            w_app, w_sm, eps, generic: bool) -> torch.Tensor:
+    if q.device.type != "cuda":
+        raise ValueError(f"crf_iteration: no kernel for device {q.device}")
+    C, G, H, W = _check(q, g, u, r)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -128,12 +146,42 @@ def crf_iteration(q: torch.Tensor, g: torch.Tensor, u: torch.Tensor, r: int,
             1.0 / (2.0 * sigma_spatial_app ** 2),
             1.0 / (2.0 * sigma_color ** 2),
             1.0 / (2.0 * sigma_spatial_sm ** 2),
-            w_app, w_sm, eps, stream)
+            w_app, w_sm, eps, int(generic), stream)
     if err != 0:
         raise RuntimeError(f"crf_iteration kernel launch failed: CUDA "
                            f"error {err}")
+    return out
+
+
+def crf_iteration(q: torch.Tensor, g: torch.Tensor, u: torch.Tensor, r: int,
+                  sigma_spatial_app: float, sigma_color: float,
+                  sigma_spatial_sm: float, w_app: float, w_sm: float,
+                  eps: float = 1e-8) -> torch.Tensor:
+    """One mean-field iteration, channel-major: q, u [C, H, W] and
+    g [G, H, W] f32 -> [C, H, W] f32.
+
+    A CPU tensor goes through ``crf_iteration_reference``; a CUDA tensor
+    through the kernel ``variant(C, G, r)`` names, or this raises."""
+    if q.device.type == "cpu":
+        return crf_iteration_reference(q, g, u, r, sigma_spatial_app,
+                                       sigma_color, sigma_spatial_sm, w_app,
+                                       w_sm, eps)
+    out = _launch(q, g, u, r, sigma_spatial_app, sigma_color,
+                  sigma_spatial_sm, w_app, w_sm, eps, generic=False)
     crf_iteration.launches += 1
     return out
 
 
 crf_iteration.launches = 0
+
+
+def crf_iteration_generic(q: torch.Tensor, g: torch.Tensor, u: torch.Tensor,
+                          r: int, sigma_spatial_app: float,
+                          sigma_color: float, sigma_spatial_sm: float,
+                          w_app: float, w_sm: float, eps: float = 1e-8
+                          ) -> torch.Tensor:
+    """``crf_iteration`` on the generic kernel whatever the sizes, CUDA
+    tensors only: the yardstick the tiled kernel is timed against.  The
+    package's paths do not call it, and it counts no launch."""
+    return _launch(q, g, u, r, sigma_spatial_app, sigma_color,
+                   sigma_spatial_sm, w_app, w_sm, eps, generic=True)

@@ -8,7 +8,10 @@ that reduces the logits to the 3C + 4 statistics all three losses need;
 gradient per pixel from those statistics.  The kernels are
 ``pylc_tpu_torch/csrc/fused_loss.cu`` (its header gives the math, the
 bounds and the design), built by ``_build`` and called through ``ctypes``
-on PyTorch's current stream.
+on PyTorch's current stream.  K2b has two kernels, and
+``backward_variant`` says which one a logits tensor gets: one that stages
+a block's span through shared memory, for dense ``channels_last`` logits
+with 9 or 11 classes, and a direct one for every other accepted layout.
 
 Logits are ``[B, C, H, W]`` f32, either contiguous NCHW or
 ``channels_last`` (the train step hands over the latter); targets are
@@ -37,6 +40,10 @@ SOURCE = _build.source_path("fused_loss")
 # the bound compiled into the kernels (kMaxC in the source); the Pallas
 # kernel takes up to 128 classes
 MAX_CLASSES = 16
+# class counts with compile-time instantiations of K2b (both schemas')
+KNOWN_CLASSES = (9, 11)
+# K2b's direct kernel puts the image index into the grid's y dimension
+MAX_BATCH = 65535
 
 
 def build(force: bool = False):
@@ -60,8 +67,10 @@ def _library() -> ctypes.CDLL:
     lib.fused_loss_forward_f32.restype = ci
     lib.fused_loss_backward_f32.argtypes = [vp, vp, vp, vp, vp, vp, ci, cl,
                                             cl, cl, cl, cl, ci, cf, cf, cf,
-                                            cf, cf, cf, cf, vp]
+                                            cf, cf, cf, cf, ci, vp]
     lib.fused_loss_backward_f32.restype = ci
+    lib.fused_loss_backward_variant.argtypes = [vp, vp, ci, cl, cl, cl, cl]
+    lib.fused_loss_backward_variant.restype = ci
     if lib.fused_loss_max_classes() != MAX_CLASSES:
         raise RuntimeError("fused_loss.cu's kMaxC disagrees with "
                            "MAX_CLASSES")
@@ -177,6 +186,10 @@ def _check(logits: torch.Tensor, target: torch.Tensor,
     if not 1 <= C <= MAX_CLASSES:
         raise ValueError(f"{name}: {C} classes, the kernel takes at most "
                          f"MAX_CLASSES = {MAX_CLASSES}")
+    if not 1 <= B <= MAX_BATCH or H * W < 1:
+        raise ValueError(f"{name}: batch {B} of {H}x{W} pixels, the kernel "
+                         f"takes 1 to {MAX_BATCH} images of at least one "
+                         "pixel")
     if (target.dtype != torch.uint8 or tuple(target.shape) != (B, H, W)
             or not target.is_contiguous() or target.device != logits.device):
         raise ValueError(f"{name}: target must be a contiguous uint8 "
@@ -190,8 +203,40 @@ def _check(logits: torch.Tensor, target: torch.Tensor,
         if cw.shape != (C,):
             raise ValueError(f"{name}: class_weights {tuple(cw.shape)}, "
                              f"expected ({C},)")
-    sP = logits.stride(3) if W > 1 else logits.stride(2)
-    return C, B * H * W, H * W, logits.stride(0), logits.stride(1), sP, cw
+    return (C, B * H * W, H * W, logits.stride(0), logits.stride(1),
+            _pixel_stride(logits), cw)
+
+
+def _pixel_stride(logits: torch.Tensor) -> int:
+    """Stride of the merged (H, W) pixel index of an accepted layout."""
+    return logits.stride(3) if logits.shape[3] > 1 else logits.stride(2)
+
+
+# names of K2b's kernels, by the code ``fused_loss_backward_variant``
+# returns for a layout
+BACKWARD_VARIANTS = {2: "staged<C={C}>", 1: "direct<C={C}>",
+                     0: "direct<runtime C>"}
+
+
+def backward_variant_code(logits: torch.Tensor, aligned: bool = True) -> int:
+    """Which K2b kernel ``logits`` (an accepted layout) gets, as the
+    library's dispatch decides it: 2 the staged kernel (a compile-time
+    class count, dense channels_last: class stride 1, pixel stride C,
+    batch stride H*W*C; logits and dlogits 16-byte aligned), 1 the direct
+    kernel with a compile-time class count, 0 the direct kernel with a
+    run-time class count."""
+    B, C, H, W = logits.shape
+    if C not in KNOWN_CLASSES:
+        return 0
+    flat = (logits.stride(1) == 1 and _pixel_stride(logits) == C
+            and logits.stride(0) == H * W * C)
+    return 2 if flat and aligned else 1
+
+
+def backward_variant(logits: torch.Tensor) -> str:
+    """Name of the K2b kernel that ``logits`` runs on."""
+    code = backward_variant_code(logits, logits.data_ptr() % 16 == 0)
+    return BACKWARD_VARIANTS[code].format(C=logits.shape[1])
 
 
 def fused_loss_forward(logits: torch.Tensor, target: torch.Tensor,
@@ -226,18 +271,8 @@ def fused_loss_forward(logits: torch.Tensor, target: torch.Tensor,
     return acc
 
 
-def fused_loss_backward(logits: torch.Tensor, target: torch.Tensor,
-                        class_weights: Optional[torch.Tensor],
-                        acc: torch.Tensor, cotangent: torch.Tensor,
-                        w: LossWeights) -> torch.Tensor:
-    """K2b: d(total)/d(logits) x ``cotangent`` (a 0-d tensor), in the
-    logits' own layout.
-
-    A CPU tensor goes through ``fused_backward_reference``; a CUDA tensor
-    through the kernel, or this raises."""
-    if logits.device.type == "cpu":
-        return fused_backward_reference(logits, target, class_weights, acc,
-                                        cotangent, w)
+def _launch_backward(logits, target, class_weights, acc, cotangent, w,
+                     direct: bool) -> torch.Tensor:
     if logits.device.type != "cuda":
         raise ValueError(f"fused_loss_backward: no kernel for device "
                          f"{logits.device}")
@@ -258,12 +293,40 @@ def fused_loss_backward(logits: torch.Tensor, target: torch.Tensor,
             logits.data_ptr(), target.data_ptr(), cw.data_ptr(),
             acc.data_ptr(), ct.data_ptr(), dx.data_ptr(), C, N, HW, sB, sC,
             sP, int(w.weighted), w.fl_alpha, w.fl_gamma, w.eps,
-            w.dice_smooth, w.ce, w.dice, w.focal, stream)
+            w.dice_smooth, w.ce, w.dice, w.focal, int(direct), stream)
     if err != 0:
         raise RuntimeError(f"fused_loss_backward kernel launch failed: CUDA "
                            f"error {err}")
+    return dx
+
+
+def fused_loss_backward(logits: torch.Tensor, target: torch.Tensor,
+                        class_weights: Optional[torch.Tensor],
+                        acc: torch.Tensor, cotangent: torch.Tensor,
+                        w: LossWeights) -> torch.Tensor:
+    """K2b: d(total)/d(logits) x ``cotangent`` (a 0-d tensor), in the
+    logits' own layout.
+
+    A CPU tensor goes through ``fused_backward_reference``; a CUDA tensor
+    through the kernel ``backward_variant`` names, or this raises."""
+    if logits.device.type == "cpu":
+        return fused_backward_reference(logits, target, class_weights, acc,
+                                        cotangent, w)
+    dx = _launch_backward(logits, target, class_weights, acc, cotangent, w,
+                          direct=False)
     fused_loss_backward.launches += 1
     return dx
+
+
+def fused_loss_backward_direct(logits: torch.Tensor, target: torch.Tensor,
+                               class_weights: Optional[torch.Tensor],
+                               acc: torch.Tensor, cotangent: torch.Tensor,
+                               w: LossWeights) -> torch.Tensor:
+    """``fused_loss_backward`` on the direct kernel whatever the layout,
+    CUDA tensors only: the yardstick the staged kernel is timed against.
+    The package's paths do not call it, and it counts no launch."""
+    return _launch_backward(logits, target, class_weights, acc, cotangent,
+                            w, direct=True)
 
 
 fused_loss_forward.launches = 0

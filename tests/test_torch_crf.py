@@ -45,6 +45,24 @@ def test_reference_iteration_matches_pallas_kernel():
     np.testing.assert_allclose(got.numpy(), want, atol=2e-6)
 
 
+@pytest.mark.parametrize("C,G,H,W,r", [(9, 3, 37, 70, 3), (11, 1, 21, 24, 3)])
+def test_reference_iteration_matches_pallas_at_tiled_sizes(C, G, H, W, r):
+    """Sizes that the card runs on the tiled kernel (ragged: W = 70 is no
+    multiple of its 4-pixel strips), through the plain version."""
+    assert K.variant(C, G, r).startswith("tiled")
+    rng = np.random.default_rng(C)
+    q = rng.random((C, H, W)).astype(np.float32)
+    q /= q.sum(0, keepdims=True)
+    g = rng.integers(0, 256, (G, H, W)).astype(np.float32)
+    u = np.log(q + 1e-8)
+    want = np.asarray(jax_iteration(jnp.asarray(q), jnp.asarray(g),
+                                    jnp.asarray(u), r, **SIGMAS,
+                                    interpret=True))
+    got = K.crf_iteration(torch.from_numpy(q), torch.from_numpy(g),
+                          torch.from_numpy(u), r, **SIGMAS)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-6)
+
+
 @pytest.mark.parametrize("H,W,downsample", [(48, 80, 2), (37, 70, 2),
                                             (30, 44, 1)])
 def test_mean_field_matches_jax_xla(H, W, downsample):
@@ -118,6 +136,70 @@ def test_kernel_source_and_build_flags():
     for bound, name in ((K.MAX_CLASSES, "kMaxC"), (K.MAX_GUIDE, "kMaxG"),
                         (K.MAX_RADIUS, "kMaxR")):
         assert f"constexpr int {name} = {bound};" in src
+
+
+@pytest.mark.parametrize("size,name", [
+    ((9, 3, 3), "tiled<C=9,G=3,R=3>"), ((11, 3, 3), "tiled<C=11,G=3,R=3>"),
+    ((9, 1, 3), "tiled<C=9,G=1,R=3>"), ((11, 1, 3), "tiled<C=11,G=1,R=3>"),
+    ((11, 3, 2), "generic"), ((9, 3, 4), "generic"), ((7, 3, 3), "generic"),
+    ((9, 2, 3), "generic"), ((16, 4, 8), "generic")])
+def test_variant_choice(size, name):
+    """Which kernel a size runs on: the tiled one for the sizes the
+    package uses (both schemas, RGB or grayscale guide, default radius)."""
+    assert K.variant(*size) == name
+
+
+def test_tiled_sizes_are_the_sources():
+    import re
+    with open(K.SOURCE) as f:
+        macro = re.search(r"#define PYLC_K1_TILED_SIZES\(X\)(.*)", f.read())
+    sizes = {tuple(int(v) for v in m) for m in
+             re.findall(r"X\((\d+), (\d+), (\d+)\)", macro.group(1))}
+    assert sizes == set(K.TILED_SIZES)
+    from pylc_tpu_torch.config import Schema
+    assert {c for c, _, _ in sizes} == {Schema.load(s).n_classes
+                                        for s in ("schema_a", "schema_b")}
+
+
+def _operands(C=9, G=3, H=6, W=8):
+    return torch.zeros(C, H, W), torch.zeros(G, H, W), torch.zeros(C, H, W)
+
+
+@pytest.mark.parametrize("case,match", [
+    ("classes", "outside the kernel's bounds"),
+    ("guide", "outside the kernel's bounds"),
+    ("radius", "outside the kernel's bounds"),
+    ("dtype", "takes float32"), ("strided", "contiguous"),
+    ("rank", "contiguous"), ("shapes", "disagree")])
+def test_kernel_wrapper_refuses_bad_operands(case, match):
+    """What the CUDA wrapper checks is device-independent; on the CPU the
+    plain version runs, so the checks are exercised directly."""
+    q, g, u = _operands()
+    r = 3
+    if case == "classes":
+        q, g, u = _operands(C=17)
+    elif case == "guide":
+        q, g, u = _operands(G=5)
+    elif case == "radius":
+        r = 9
+    elif case == "dtype":
+        g = g.double()
+    elif case == "strided":
+        u = torch.zeros(9, 6, 16)[:, :, ::2]
+    elif case == "rank":
+        g = g[0]
+    elif case == "shapes":
+        g = torch.zeros(3, 6, 9)
+    with pytest.raises(ValueError, match=match):
+        K._check(q, g, u, r)
+
+
+def test_kernel_wrapper_accepts_the_slice_and_no_kernel_on_cpu():
+    assert K._check(*_operands(), 3) == (9, 3, 6, 8)
+    assert K._check(*_operands(11, 1, 5, 7), 0) == (11, 1, 5, 7)
+    with pytest.raises(ValueError, match="no kernel for device cpu"):
+        K.crf_iteration_generic(*_operands(), 3, **SIGMAS)
+    assert K.crf_iteration.launches == 0
 
 
 def _miou(pred, true, n_classes):

@@ -1,6 +1,7 @@
-"""The PyTorch port imports with jax, flax, optax and h5py blocked (the
-card's machine has no flax or h5py), trains from an in-memory DB there,
-and its sources never import jax."""
+"""The PyTorch port imports with the JAX package (``pylc_tpu``), jax,
+flax, optax and h5py blocked (the card's machine has no flax or h5py),
+trains from an in-memory DB there, and its sources import neither jax
+nor anything of ``pylc_tpu``."""
 
 import os
 import re
@@ -15,6 +16,7 @@ MODULES = [
     "pylc_tpu_torch.config", "pylc_tpu_torch.convert",
     "pylc_tpu_torch.device",
     "pylc_tpu_torch.evaluate", "pylc_tpu_torch.infer",
+    "pylc_tpu_torch.native",
     "pylc_tpu_torch.tester", "pylc_tpu_torch.train_state",
     "pylc_tpu_torch.models.layers", "pylc_tpu_torch.models.resnet",
     "pylc_tpu_torch.models.aspp", "pylc_tpu_torch.models.deeplab",
@@ -26,8 +28,10 @@ MODULES = [
     "pylc_tpu_torch.ops.kernels.fused_loss", "pylc_tpu_torch.db",
     "pylc_tpu_torch.db.database", "pylc_tpu_torch.db.dataset",
     "pylc_tpu_torch.checkpoint", "pylc_tpu_torch.trainer",
+    "pylc_tpu_torch.tools", "pylc_tpu_torch.tools.time_kernels",
+    "pylc_tpu_torch.tools.k1_variants",
 ]
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "h5py")
+BLOCKED = ("pylc_tpu", "jax", "jaxlib", "flax", "optax", "h5py")
 
 
 def test_port_imports_without_jax():
@@ -49,16 +53,23 @@ def test_port_imports_without_jax():
 
 
 def test_port_sources_never_import_jax():
-    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax)\b", re.M)
-    found = []
+    # pylc_tpu, and not pylc_tpu_torch: the name ends at a dot, a space or
+    # the end of the line
+    pat = re.compile(r"^\s*(import|from)\s+((jax|jaxlib|flax|optax)\b"
+                     r"|pylc_tpu(\.|\s|$))", re.M)
+    paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(PKG):
-        for f in files:
-            if f.endswith(".py"):
-                path = os.path.join(root, f)
-                with open(path) as fh:
-                    if pat.search(fh.read()):
-                        found.append(os.path.relpath(path, REPO))
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    assert len(paths) > 20
+    found = []
+    for path in paths:
+        with open(path) as fh:
+            if pat.search(fh.read()):
+                found.append(os.path.relpath(path, REPO))
     assert not found, found
+    assert pat.search("  from pylc_tpu.config import Config\n")
+    assert pat.search("import pylc_tpu\n")
+    assert not pat.search("from pylc_tpu_torch.config import Config\n")
 
 
 def test_in_memory_train_runs_without_jax_flax_h5py(tmp_path):

@@ -206,6 +206,82 @@ def test_kernel_wrappers_refuse_bad_operands():
     assert torch.equal(cw, torch.ones(9))
 
 
+def _cl(*shape):
+    return torch.zeros(*shape).contiguous(memory_format=torch.channels_last)
+
+
+@pytest.mark.parametrize("logits,aligned,code,name", [
+    (_cl(8, 9, 16, 16), True, 2, "staged<C=9>"),       # the train step's
+    (_cl(1, 11, 37, 29), True, 2, "staged<C=11>"),     # ragged span
+    (_cl(1, 11, 5, 1), True, 2, "staged<C=11>"),       # W = 1
+    (_cl(2, 9, 4, 4), False, 1, "direct<C=9>"),        # unaligned storage
+    (torch.zeros(2, 9, 4, 4), True, 1, "direct<C=9>"),  # contiguous NCHW
+    (torch.zeros(1, 11, 37, 29), True, 1, "direct<C=11>"),
+    (_cl(2, 10, 4, 4), True, 0, "direct<runtime C>"),  # an even stride
+    (_cl(2, 4, 4, 4), True, 0, "direct<runtime C>"),
+    (torch.zeros(2, 16, 3, 3), True, 0, "direct<runtime C>"),
+], ids=lambda v: v if isinstance(v, str) else None)
+def test_backward_variant_choice(logits, aligned, code, name):
+    """Which K2b kernel a layout gets: the staged one only for dense
+    channels_last logits with a schema's (odd) class count."""
+    assert fl.backward_variant_code(logits, aligned) == code
+    assert fl.BACKWARD_VARIANTS[code].format(C=logits.shape[1]) == name
+    if aligned:
+        assert fl.backward_variant(logits) == name
+
+
+def test_backward_variant_known_classes_are_the_schemas_and_odd():
+    from pylc_tpu_torch.config import Schema
+    assert set(fl.KNOWN_CLASSES) == {Schema.load(s).n_classes
+                                     for s in ("schema_a", "schema_b")}
+    assert all(c % 2 == 1 for c in fl.KNOWN_CLASSES)  # bank-conflict free
+    with open(fl.SOURCE) as f:
+        src = f.read()
+    for c in fl.KNOWN_CLASSES:
+        assert f"fused_loss_backward_staged_kernel<{c}>" in src
+        assert f"fused_loss_backward_direct_kernel<{c}>" in src
+
+
+@pytest.mark.parametrize("shape,cl", [((2, 9, 5, 7), True),
+                                      ((1, 11, 37, 29), True),
+                                      ((1, 11, 37, 29), False),
+                                      ((3, 10, 4, 6), True)])
+def test_plain_backward_at_each_variants_layout(shape, cl):
+    """The plain K2b on the layouts of each kernel variant (a span that
+    ends ragged, an even class count) against autograd of multi_loss."""
+    B, C, H, W = shape
+    x, t, cw = _inputs(7, B, H, W, C)
+    w = LossWeights(weighted=True)
+    xt = _torch_x(x, channels_last=cl)
+    tt, cwt = torch.from_numpy(t), torch.from_numpy(cw)
+    total, _ = multi_loss(xt, tt, cwt, w)
+    total.backward()
+    acc = fl.fused_loss_forward(xt.detach(), tt, cwt, w)
+    dx = fl.fused_loss_backward(xt.detach(), tt, cwt, acc,
+                                torch.tensor(1.0), w)
+    np.testing.assert_allclose(dx.numpy(), xt.grad.numpy(), **GRAD_TOL)
+
+
+def test_kernel_wrappers_refuse_a_batch_beyond_the_grid():
+    x = torch.zeros(1, 9, 1, 1).expand(fl.MAX_BATCH + 1, 9, 1, 1)
+    t = torch.zeros(fl.MAX_BATCH + 1, 1, 1, dtype=torch.uint8)
+    with pytest.raises(ValueError, match="channels_last|65535"):
+        fl._check(x, t, None, "k")
+    x = torch.zeros(fl.MAX_BATCH + 1, 9, 1, 1)
+    with pytest.raises(ValueError, match="65535"):
+        fl._check(x, t, None, "k")
+
+
+def test_direct_yardstick_has_no_cpu_form():
+    x, t, cw = _inputs(8, 1, 4, 4, 9)
+    xt = _torch_x(x).detach()
+    with pytest.raises(ValueError, match="no kernel for device cpu"):
+        fl.fused_loss_backward_direct(
+            xt, torch.from_numpy(t), None, torch.zeros(31),
+            torch.tensor(1.0), LossWeights())
+    assert fl.fused_loss_backward.launches == 0
+
+
 def test_kernel_source_states_the_bound():
     """The card builds K2 from the package's own source, whose class bound
     is the wrapper's."""
