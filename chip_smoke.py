@@ -17,11 +17,15 @@ Phases, in order; any failed check raises, and the script exits non-zero:
            turns with it) and the bound.
   [k2]     K2a and K2b against their plain versions at the training
            slice's [8, 9, 512, 512] channels_last logits (weighted and
-           not) and at a ragged contiguous [1, 11, 37, 29] with targets
+           not), at a ragged channels_last [3, 9, 61, 53], a ragged
+           contiguous [1, 11, 37, 29] and a ragged channels_last
+           [2, 6, 45, 37] (a run-time class count), these with targets
            outside [0, C): K2a's 3C + 4 statistics entry by entry and the
-           losses from them, K2b's dlogits against the plain backward fed
-           by the plain forward; per shape the K2b kernel that ran, the
-           times (K2b in turns with its direct kernel) and the bounds.
+           losses from them, twice for bit-equal results, K2b's dlogits
+           against the plain backward fed by the plain forward, and K2b's
+           direct kernel held to the same limit; per shape the kernels
+           that ran, the times (K2b in turns with its direct kernel) and
+           the bounds.
   [net]    the f32 network on the card against the same network on the
            CPU.
   [slice]  the segmentation path: ``Segmenter`` with the CRF on, at full
@@ -29,6 +33,13 @@ Phases, in order; any failed check raises, and the script exits non-zero:
            stride 256) on a seeded 3584x2048 photo, with random weights
            from a seeded ``torch.Generator`` that go through a
            reference-schema ``.pth`` and ``load_pth_model``.
+  [many]   the archive path: 8 seeded 3584x2048 photos through
+           ``Segmenter.segment_many`` (pinned buffers, a copy stream, the
+           colourize on a worker thread) and the same 8 through
+           ``segment_array`` one after the other, in turns: every class
+           map and mask equal, K1 launched 5 x 8 times, total wall and
+           MP/s of both, each photo's completion time, peak memory, and
+           the device's busy time per photo under ``torch.profiler``.
   [cli]    the ``test`` CLI on a 3872x2592 JPEG.
   [train]  the training path: ``trainer.train`` at full width (512 px,
            batch 8, bf16 autocast, AdamW with step_lr, clip 0.5, the fused
@@ -37,6 +48,12 @@ Phases, in order; any failed check raises, and the script exits non-zero:
            through ``tester.load_model`` and segments a 1024x1024 photo;
            then 10 timed steps on one fixed batch, whose loss must fall,
            one of them under ``torch.profiler``.
+
+A hand-written kernel's time (``ms``) is the mean over one CUDA graph of
+50 of its wrapper's launches (``graph_ms``): the card's time, whatever the
+host's.  Beside it stands ``host_loop_ms``, the mean over 50 launches from
+a loop on the host (``cuda_ms``), which is what the scripts before this
+one measured.
 
 Output: per-phase lines, then one JSON line with every kernel, the
 card's ``name, power.limit`` line, and last a JSON line
@@ -68,10 +85,15 @@ K1_SHAPES = [                  # (C, G, H, W, r)
 K1_ATOL = 1e-5                 # f32, no fast math; measured ~2e-7
 CRF_AGREEMENT = 0.999          # class maps, kernel CRF vs plain CRF
 N_PHOTOS = 3                   # timed runs of the slice after one warm-up
-K2_SHAPES = [                  # (B, C, H, W, channels_last, weighted)
-    (8, 9, 512, 512, True, False),   # the training slice
-    (8, 9, 512, 512, True, True),
-    (1, 11, 37, 29, False, True),    # ragged, contiguous NCHW
+MANY_PHOTOS = 8                # the archive path's photos, at SLICE_HW
+K2_SHAPES = [   # (B, C, H, W, channels_last, weighted, targets outside)
+    (8, 9, 512, 512, True, False, False),   # the training slice
+    (8, 9, 512, 512, True, True, False),
+    # ragged: a K2a block (4,096 pixels of one image) gets 12 whole chunks
+    # of 256 and one of 161
+    (3, 9, 61, 53, True, True, True),
+    (1, 11, 37, 29, False, True, True),     # ragged, contiguous NCHW
+    (2, 6, 45, 37, True, True, True),       # ragged, a run-time class count
 ]
 # f32, no fast math.  Both sides sum millions of terms in different
 # orders (the kernel: per-block tree then a double-precision pass; torch:
@@ -105,6 +127,29 @@ def cuda_ms(fn, n: int, warmup: int = 2) -> float:
     start.record()
     for _ in range(n):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def graph_ms(fn, n: int) -> float:
+    """Mean device milliseconds of ``fn`` over ``n`` calls replayed from
+    one CUDA graph: what the launches take on the card with no host time
+    between them.  A loop on the host measures the host instead wherever
+    a launch costs it more than the kernel costs the card, which for the
+    loss kernels (tens of microseconds) depends on the machine."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
@@ -146,8 +191,9 @@ def k2_bounds(B, C, H, W):
 
 
 def in_turns(a, b, n: int):
-    """Mean device ms of ``a`` and of ``b``, timed a, b, b, a."""
-    a1, b1, b2, a2 = (cuda_ms(f, n) for f in (a, b, b, a))
+    """Mean device ms of ``a`` and of ``b``, timed a, b, b, a, each from
+    a CUDA graph of ``n`` launches."""
+    a1, b1, b2, a2 = (graph_ms(f, n) for f in (a, b, b, a))
     return (a1 + a2) / 2, (b1 + b2) / 2
 
 
@@ -229,13 +275,14 @@ def phase_k1(device):
         generic_ms, ms = in_turns(
             lambda: crf_iteration_generic(q, g, u, r, *sig),
             lambda: crf_iteration(q, g, u, r, *sig), 50)
+        host_ms = cuda_ms(lambda: crf_iteration(q, g, u, r, *sig), 50)
         plain_ms = cuda_ms(lambda: crf_iteration_reference(q, g, u, r, *sig),
                            10)
         bound_ms, bound_by = k1_bound(C, G, H, W, r)
         name = variant(C, G, r)
         log(f"[k1] C={C} G={G} {H}x{W} r={r}: {name} max_abs_err {err:.3e} "
-            f"(limit {K1_ATOL:g}); kernel {ms:.4f} ms/iter, plain "
-            f"{plain_ms:.4f} ms/iter, generic kernel {generic_ms:.4f} "
+            f"(limit {K1_ATOL:g}); kernel {ms:.4f} ms/iter from a graph, "
+            f"{host_ms:.4f} from a host loop, plain {plain_ms:.4f} ms/iter, generic kernel {generic_ms:.4f} "
             f"ms/iter (max_abs_err {generic_err:.3e}); bound "
             f"{bound_ms:.4f} ms by {bound_by}, share {bound_ms / ms:.3f}")
         for what, e in (("K1", err), ("K1's generic kernel", generic_err)):
@@ -246,7 +293,8 @@ def phase_k1(device):
         if at_slice is None:
             at_slice = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "variant": name,
-                        "generic_ms": generic_ms}
+                        "generic_ms": generic_ms,
+                        "host_loop_ms": host_ms}
     if not at_slice["variant"].startswith("tiled"):
         raise AssertionError(f"the slice's shape ran {at_slice['variant']}, "
                              "not a tiled instantiation")
@@ -254,23 +302,24 @@ def phase_k1(device):
 
 
 def phase_k2(device):
-    """K2a and K2b against fused_forward_reference and
-    fused_backward_reference on the card."""
+    """K2a and K2b, the kernel each layout gets (and K2b's direct
+    kernel), against fused_forward_reference and fused_backward_reference
+    on the card."""
     from pylc_tpu_torch.ops.kernels import fused_loss as fl
     from pylc_tpu_torch.ops.kernels.fused_loss import (
-        backward_variant, fused_backward_reference, fused_forward_reference,
-        fused_loss_backward, fused_loss_backward_direct, fused_loss_forward,
-        losses_from_acc)
+        backward_variant, forward_variant, fused_backward_reference,
+        fused_forward_reference, fused_loss_backward,
+        fused_loss_backward_direct, fused_loss_forward, losses_from_acc)
     from pylc_tpu_torch.ops.losses import LossWeights
     worst_loss, worst_dx, at_slice = 0.0, 0.0, None
-    for B, C, H, W, cl, weighted in K2_SHAPES:
+    for B, C, H, W, cl, weighted, outside in K2_SHAPES:
         rng = np.random.default_rng(B * 100 + C)
         x = torch.from_numpy(
             rng.normal(size=(B, C, H, W)).astype(np.float32) * 3).to(device)
         if cl:
             x = x.contiguous(memory_format=torch.channels_last)
         t = rng.integers(0, C, (B, H, W)).astype(np.uint8)
-        if not cl:   # ragged: targets outside [0, C), no class
+        if outside:   # targets outside [0, C): no class
             t[rng.random(t.shape) < 0.1] = 255
             t[rng.random(t.shape) < 0.05] = C
         t = torch.from_numpy(t).to(device)
@@ -279,6 +328,7 @@ def phase_k2(device):
         w = LossWeights(weighted=weighted)
         ct = torch.tensor(0.75, device=device)
         acc = fused_loss_forward(x, t, cw, w)
+        acc_again = fused_loss_forward(x, t, cw, w)
         acc_ref = fused_forward_reference(x, t, cw, w)
         # each side's backward from its own forward: a fault of K2a that
         # reaches the gradient shows in dlogits too
@@ -289,27 +339,39 @@ def phase_k2(device):
         if dx.stride() != x.stride():
             raise AssertionError(f"dlogits strides {dx.stride()} are not "
                                  f"the logits' {x.stride()}")
-        name = backward_variant(x)
-        code = fl._library().fused_loss_backward_variant(
-            x.data_ptr(), dx.data_ptr(), C, H * W, x.stride(0), x.stride(1),
-            fl._pixel_stride(x))
-        if fl.BACKWARD_VARIANTS[code].format(C=C) != name:
-            raise AssertionError(f"the library dispatches K2b to variant "
-                                 f"{code}, backward_variant says {name}")
+        if not torch.equal(acc, acc_again):
+            raise AssertionError(f"two launches of K2a on the same input "
+                                 f"differ: {acc.tolist()} vs "
+                                 f"{acc_again.tolist()}")
+        fwd_name, name = forward_variant(x), backward_variant(x)
+        lib = fl._library()
+        codes = {"K2a": (lib.fused_loss_forward_variant(C), fwd_name),
+                 "K2b": (lib.fused_loss_backward_variant(
+                     x.data_ptr(), dx.data_ptr(), C, H * W, x.stride(0),
+                     x.stride(1), fl._pixel_stride(x)), name)}
+        for what, (code, said) in codes.items():
+            if fl.VARIANTS[code].format(C=C) != said:
+                raise AssertionError(f"the library dispatches {what} to "
+                                     f"variant {code}, the wrapper says "
+                                     f"{said}")
+
         acc_diff = (acc - acc_ref).abs()
         acc_rel = (acc_diff / acc_ref.abs()).nan_to_num(0.0).max().item()
         acc_bad = int((~(acc_diff <= K2_ACC_RTOL * acc_ref.abs())).sum())
-        got = torch.stack(losses_from_acc(acc, C, w))
         want = torch.stack(losses_from_acc(acc_ref, C, w))
+        got = torch.stack(losses_from_acc(acc, C, w))
         loss_err = (got - want).abs().max().item()
         loss_rel = ((got - want).abs() / want.abs()).max().item()
         dx_err = (dx - dx_ref).abs().max().item()
         direct_err = (dx_direct - dx_ref).abs().max().item()
         dx_scale = dx_ref.abs().max().item()
-        fwd_ms = cuda_ms(lambda: fused_loss_forward(x, t, cw, w), 20)
+        fwd_ms = graph_ms(lambda: fused_loss_forward(x, t, cw, w), 50)
+        fwd_host = cuda_ms(lambda: fused_loss_forward(x, t, cw, w), 50)
         fwd_plain = cuda_ms(lambda: fused_forward_reference(x, t, cw, w), 5)
         direct_ms, bwd_ms = in_turns(
             lambda: fused_loss_backward_direct(x, t, cw, acc, ct, w),
+            lambda: fused_loss_backward(x, t, cw, acc, ct, w), 50)
+        bwd_host = cuda_ms(
             lambda: fused_loss_backward(x, t, cw, acc, ct, w), 50)
         bwd_plain = cuda_ms(
             lambda: fused_backward_reference(x, t, cw, acc, ct, w), 5)
@@ -319,23 +381,29 @@ def phase_k2(device):
             f"(total, ce, dice, focal) {[round(v, 6) for v in got.tolist()]}"
             f" max_abs_err {loss_err:.3e} max_rel_err {loss_rel:.3e} "
             f"(limit {K2_LOSS_RTOL:g}); statistics ({3 * C + 4} entries) "
-            f"max_rel_err {acc_rel:.3e} (limit {K2_ACC_RTOL:g} each); "
-            f"dlogits max_abs_err {dx_err:.3e} at max |dx| {dx_scale:.3e} "
-            f"(limit {K2_DX_RTOL:g} x max)")
-        log(f"[k2]   K2a {fwd_ms:.4f} ms, plain {fwd_plain:.4f} ms, bound "
-            f"{fwd_bound:.4f} ms by {fwd_by}, share "
-            f"{fwd_bound / fwd_ms:.3f}; K2b {name} {bwd_ms:.4f} ms, plain "
-            f"{bwd_plain:.4f} ms, direct kernel {direct_ms:.4f} ms "
-            f"(max_abs_err {direct_err:.3e}), bound {bwd_bound:.4f} ms by "
-            f"{bwd_by}, share {bwd_bound / bwd_ms:.3f}")
+            f"max_rel_err {acc_rel:.3e} (limit {K2_ACC_RTOL:g} each), two "
+            f"launches bit-equal; dlogits max_abs_err {dx_err:.3e} at max "
+            f"|dx| {dx_scale:.3e} (limit {K2_DX_RTOL:g} x max)")
+        # launches back to back on one input: what of the logits fits the
+        # 50 MB L2 is read from there
+        log(f"[k2]   K2a {fwd_name} {fwd_ms:.4f} ms from a graph, "
+            f"{fwd_host:.4f} ms from a host loop, plain {fwd_plain:.4f} "
+            f"ms, bound {fwd_bound:.4f} ms by {fwd_by}, share "
+            f"{fwd_bound / fwd_ms:.3f} ({fwd_bound / fwd_host:.3f} by the "
+            f"host loop); K2b {name} {bwd_ms:.4f} ms from a graph, "
+            f"{bwd_host:.4f} ms from a host loop, plain {bwd_plain:.4f} "
+            f"ms, direct kernel {direct_ms:.4f} ms (max_abs_err "
+            f"{direct_err:.3e}), bound {bwd_bound:.4f} ms by {bwd_by}, "
+            f"share {bwd_bound / bwd_ms:.3f}")
         if acc_bad:
             raise AssertionError(
                 f"K2a disagrees with its plain version on {acc_bad} of "
                 f"{3 * C + 4} statistics: {acc.tolist()} vs "
                 f"{acc_ref.tolist()}")
         if not loss_rel <= K2_LOSS_RTOL:
-            raise AssertionError(f"K2a disagrees with its plain version: "
-                                 f"relative {loss_rel} > {K2_LOSS_RTOL}")
+            raise AssertionError(f"K2a disagrees with its plain version on "
+                                 f"the losses: relative {loss_rel} > "
+                                 f"{K2_LOSS_RTOL}")
         for what, e in (("K2b", dx_err),
                         ("K2b's direct kernel", direct_err)):
             if not e <= K2_DX_RTOL * dx_scale:
@@ -348,14 +416,16 @@ def phase_k2(device):
             at_slice = {
                 "fwd": {"ms": fwd_ms, "plain_ms": fwd_plain,
                         "bound_ms": fwd_bound, "bound_by": fwd_by,
-                        "variant": "partials + final sum"},
+                        "variant": fwd_name, "host_loop_ms": fwd_host},
                 "bwd": {"ms": bwd_ms, "plain_ms": bwd_plain,
                         "bound_ms": bwd_bound, "bound_by": bwd_by,
-                        "variant": name, "direct_ms": direct_ms}}
-    if not at_slice["bwd"]["variant"].startswith("staged"):
-        raise AssertionError(f"the train step's layout ran "
-                             f"{at_slice['bwd']['variant']}, not the staged "
-                             "kernel")
+                        "variant": name, "host_loop_ms": bwd_host,
+                        "direct_ms": direct_ms}}
+    ran = (at_slice["fwd"]["variant"], at_slice["bwd"]["variant"])
+    if ran != ("direct<C=9>", "staged<C=9>"):
+        raise AssertionError(f"the train step's layout ran K2a {ran[0]} and "
+                             f"K2b {ran[1]}, not the compile-time class "
+                             "count and the staged kernel")
     return worst_loss, worst_dx, at_slice
 
 
@@ -457,7 +527,109 @@ def phase_slice(device, workdir, cfg_base=None, hw=SLICE_HW):
         f"{diff:.3e}")
     if agree < CRF_AGREEMENT:
         raise AssertionError(f"class maps agree on {agree} < {CRF_AGREEMENT}")
-    return launches, pth
+    return launches, pth, seg
+
+
+def phase_many(seg, device, hw=SLICE_HW):
+    """The archive path: MANY_PHOTOS photos through segment_many and
+    through segment_array one after the other, timed many, one by one,
+    one by one, many."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pylc_tpu_torch.ops.kernels.crf_kernel import crf_iteration
+    rng = np.random.default_rng(21)
+    photos = [rng.integers(0, 255, (*hw, 3), dtype=np.uint8)
+              for _ in range(MANY_PHOTOS)]
+    mp = MANY_PHOTOS * hw[0] * hw[1] / 1e6
+
+    def many():
+        out = seg.segment_many(photos)
+        torch.cuda.synchronize(device)
+        return out
+
+    def one_by_one():
+        out = []
+        for photo in photos:
+            res = seg.segment_array(photo)
+            del res["probs"]  # 264 MB of canvas each
+            out.append(res)
+        return out
+
+    def timed(fn):
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        out = fn()
+        wall = time.perf_counter() - t0
+        return out, wall, torch.cuda.max_memory_allocated(device)
+
+    seg.segment_many(photos[:3])  # warm-up: pinned buffers, the stream
+    crf_iteration.launches = 0
+    got, wall_a, peak_many = timed(many)
+    launches = crf_iteration.launches
+    expect = MANY_PHOTOS * seg.crf.params.n_iters
+    want, seq_a, peak_seq = timed(one_by_one)
+    _, seq_b, _ = timed(one_by_one)
+    _, wall_b, _ = timed(many)
+    log(f"[many] K1 launches {launches} over {MANY_PHOTOS} photos through "
+        f"segment_many (expected {expect} = photos x crf_iters)")
+    if launches != expect:
+        raise AssertionError(f"K1 launched {launches} times, not {expect}")
+    if len(got) != MANY_PHOTOS:
+        raise AssertionError(f"segment_many returned {len(got)} results")
+    for i, (g, w) in enumerate(zip(got, want)):
+        if "probs" in g or g["class_map"].shape != hw:
+            raise AssertionError(f"photo {i}: keys {sorted(g)}, class map "
+                                 f"{g['class_map'].shape}")
+        if not (np.array_equal(g["class_map"], w["class_map"])
+                and np.array_equal(g["mask_rgb"], w["mask_rgb"])):
+            differ = float(np.mean(g["class_map"] != w["class_map"]))
+            raise AssertionError(f"photo {i}: segment_many's class map "
+                                 f"differs from segment_array's on "
+                                 f"{differ:.6%} of pixels")
+    total = sum(r["seconds"] for r in got)
+    if abs(total - got[-1]["completed_s"]) > 1e-6:
+        raise AssertionError("segment_many's seconds do not add up to the "
+                             "last completion")
+    log(f"[many] {MANY_PHOTOS} class maps and masks equal segment_array's; "
+        f"completed_s {[round(r['completed_s'], 4) for r in got]}; seconds "
+        f"{[round(r['seconds'], 4) for r in got]}")
+    for name, walls, peak in (("segment_many", (wall_a, wall_b), peak_many),
+                              ("segment_array one by one", (seq_a, seq_b),
+                               peak_seq)):
+        mean = sum(walls) / 2
+        log(f"[many] {name}: total wall {walls[0]:.4f} s and {walls[1]:.4f} "
+            f"s for {MANY_PHOTOS} photos of {hw[1]}x{hw[0]} ({mp:.1f} MP), "
+            f"mean {mean / MANY_PHOTOS * 1e3:.2f} ms per photo = "
+            f"{mp / mean:.3f} MP/s; peak device memory "
+            f"{peak / 2 ** 30:.3f} GiB")
+    log(f"[many] segment_many takes {(wall_a + wall_b) / (seq_a + seq_b):.3f}"
+        " of the one-by-one wall (timed many, one by one, one by one, many)")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize(device)  # the profiler's start is behind
+        t0 = time.perf_counter()
+        seg.segment_many(photos[:3])
+        torch.cuda.synchronize(device)
+        profiled = (time.perf_counter() - t0) / 3 * 1e3
+    # all device events but the host-to-device copies: the photos' uploads
+    # run on the copy stream beside the kernels, and everything else runs
+    # on the compute stream, one after the other, so the sum is the time
+    # that stream is busy
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)
+                  and not e.key.startswith("Memcpy HtoD")) / 3e3
+    per_photo = (wall_a + wall_b) / 2 / MANY_PHOTOS * 1e3
+    log(f"[many] profiled (3 photos): {busy_ms:.2f} ms per photo on the compute "
+        f"stream (the uploads beside it left out); the profiled run took "
+        f"{profiled:.2f} ms per photo with its fill (idle share "
+        f"{1 - busy_ms / profiled:.3f}), the unprofiled run of "
+        f"{MANY_PHOTOS} {per_photo:.2f} ms per photo (idle share "
+        f"{1 - busy_ms / per_photo:.3f})")
+    return launches
 
 
 def _png_size(path):
@@ -661,7 +833,9 @@ def main() -> int:
     build_root = os.path.join(REPO, "pylc_tpu_torch", "_build")
     os.makedirs(build_root, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_root) as workdir:
-        launches, pth = phase_slice(device, workdir)
+        launches, pth, seg = phase_slice(device, workdir)
+        phase_many(seg, device)
+        del seg
         phase_cli(pth, workdir)
     with tempfile.TemporaryDirectory(dir=build_root) as workdir:
         k2a_launches, k2b_launches = phase_train(device, workdir)
@@ -670,13 +844,17 @@ def main() -> int:
         # no single PyTorch call computes any of the three functions (K1 is
         # a per-pixel bilateral window, K2a/K2b fuse three losses), so
         # there is no library yardstick
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": n_launches,
-                "max_abs_err": err, "ms": m["ms"], "plain_ms": m["plain_ms"],
-                "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
-                "library_ms": None,
-                "share_of_bound": m["bound_ms"] / m["ms"],
-                "launches_per_unit": per_unit, "variant": m["variant"]}
+        out = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": n_launches,
+               "max_abs_err": err, "ms": m["ms"], "plain_ms": m["plain_ms"],
+               "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+               "library_ms": None,
+               "share_of_bound": m["bound_ms"] / m["ms"],
+               "host_loop_ms": m["host_loop_ms"],
+               "launches_per_unit": per_unit, "variant": m["variant"]}
+        if "direct_ms" in m:
+            out["direct_ms"] = m["direct_ms"]
+        return out
 
     loss_src = "pylc_tpu_torch/csrc/fused_loss.cu"
     print(json.dumps({"kernels": [

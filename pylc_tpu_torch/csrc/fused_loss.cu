@@ -13,20 +13,22 @@
 // with no copy.  Targets are uint8 [B, H, W], contiguous.  A target outside
 // [0, C) has no one-hot: it adds nothing to the CE sum or to the Dice
 // intersection and count, it counts in N, and its focal term uses
-// p_y = eps, as in the Pallas kernel.  Class weights are never indexed by
-// a target: a pixel's weight is selected by comparing the target with each
-// class in turn.
+// p_y = eps, as in the Pallas kernel.  Class weights are indexed only by a
+// target that matched a class in [0, C).
 //
 // K2a, per pixel (one thread each): softmax over C in registers, then
 //   inter_c += p_c [y == c],  sump_c += p_c,  cnt_c += [y == c],
 //   nll_sum += w_y * -log p_y,  wsum += w_y,
 //   focal_sum += -alpha (1 - p_y - eps)^gamma log(p_y + eps),  count += 1.
-// The 3C + 4 values are reduced per block (warp shuffles, then the block's
+// A thread adds the 3C + 4 terms of its pixels (one per span of 256, a
+// fixed number of spans per block) into registers; the block reduces them
+// once (one shuffle tree per warp for all the values, then the block's
 // warps through shared memory, in a fixed order) into one row of
-// partials[n_blocks][3C + 4]; a second kernel of one block sums the rows
-// in double, in a fixed order.  No atomics: the loss is the same from run
-// to run.  The losses themselves (_losses_from_acc) are computed from the
-// reduced vector by the caller.
+// partials[3C + 4][n_blocks]; a second kernel of one block sums the rows
+// in double, in a fixed order.  No atomics on values, and the order of
+// every sum depends on N and C only: the loss is the same from run to run
+// and from card to card.  The losses themselves (_losses_from_acc) are
+// computed from the reduced vector by the caller.
 //
 // K2b, per pixel: recompute the softmax (no probabilities are stored),
 // read the reduced statistics and the cotangent from device memory (no
@@ -43,28 +45,73 @@
 // ~10 exps and a few dozen flops per pixel (K2b ~150 instructions, 0.02 ms
 // of issue), far below the compute line, so device memory bounds both.
 //
-// K2a: one thread per pixel keeps a pixel's C logits in registers (bounded
-// by kMaxC) and reads them at the logits' strides, one class at a time.
+// The train step's logits are channels_last, so a pixel's C classes are C
+// consecutive floats and thread n's accesses of x[n C + c] touch a 32-byte
+// sector for 4 bytes of it, C times over.  For K2a, which only reads, L1
+// merges a warp's sector-sized reads, and one kernel serves every layout.
+// K2b also writes, and its writes reach L2 as partial sectors, so it has two
+// kernels.  The staged one copies a block's contiguous span of 256 pixels x
+// C floats into shared memory with 16-byte cp.async chunks; each thread
+// takes its pixel's C values from there (stride C words: C is odd, so the
+// 32 lanes hit 32 banks) and writes its dlogits back, and device memory
+// sees only full sectors, each once.  fused_loss_backward_variant() says
+// which tensors it takes: dense channels_last, C = 9 or 11 (both schemas;
+// compile-time, so the class loops unroll with no predicated slots),
+// 16-byte aligned.  Every other accepted layout (contiguous NCHW, where a
+// warp's accesses are coalesced as they are; an even or other class count;
+// unaligned pointers) takes K2b's direct kernel.  The direct kernels of K2a
+// and K2b have one thread per pixel at the logits' strides, the image in
+// the grid's y index, so no thread divides by H*W, and a compile-time C for
+// 9 and 11.
 //
-// K2b has two kernels.  The train step's logits are channels_last, so a
-// pixel's C classes are C consecutive floats and thread n's reads of
-// x[n C + c] touch a 32-byte sector for 4 bytes of it, C times over, and
-// its writes reach L2 as partial sectors.  What the design does:
-//   - fused_loss_backward_staged_kernel<C>, for dense channels_last logits
-//     with C = 9 or 11 (both schemas; compile-time, so the class loops
-//     unroll with no predicated slots): a block copies its contiguous span
-//     of 256 pixels x C floats into shared memory with 16-byte cp.async
-//     chunks, each thread takes its pixel's C values from there (stride C
-//     words: C is odd, so the 32 lanes hit 32 banks), writes its dlogits
-//     back into the same slots, and the block stores the span with 16-byte
-//     coalesced writes.  Device memory sees only full sectors, each once.
-//     Blocks are not persistent: six resident blocks per SM in different
-//     phases overlap one's loads with another's arithmetic.
-//   - fused_loss_backward_direct_kernel<C>, for every other case
-//     (contiguous NCHW, where a warp's accesses are coalesced as they are;
-//     an even or other class count; unaligned pointers): one thread per
-//     pixel at the logits' strides.  The grid's y index is the image, so
-//     no thread divides by H*W.
+// K2a's design:
+//   - fused_loss_forward_direct_kernel<C>: a block walks kFwdSpans = 16
+//     consecutive chunks of 256 pixels of one image, read at the logits'
+//     strides.  The threads keep their 3C + 4 partial sums in registers
+//     across the chunks and reduce them once per block, not once per 256
+//     pixels: at [8, 9, 512, 512] 512 rows of partials instead of 8,192.
+//   - the block's reduction (block_sum_slots): a warp sums its first 32
+//     values with one halving butterfly of 31 shuffles that leaves value s
+//     in lane s (5 shuffles each for the few beyond 32), instead of 5
+//     shuffles for every value.
+//   - arithmetic (forward_pixel): p = e * (1 / sum); the target's logit
+//     from registers; log p_y = (x_y - max) - log(sum); (1 - q)^gamma is
+//     (1 - q)^2 at gamma = 2 and one powf otherwise.  No intrinsic and no
+//     fast math.
+//   - the final sum is a second kernel of one block
+//     (fused_loss_reduce_kernel), in double, in a fixed order.
+//   Measured at [8, 9, 512, 512] channels_last on an H100 80GB HBM3 at
+//   700 W (chip_smoke.py's [k2] phase, 50 launches back to back, so what of
+//   the 75.5 MB of logits fits the 50 MB L2 is read from there): the whole
+//   forward 0.036 ms replayed from a CUDA graph (65% of the bound), 0.038
+//   ms from a loop on the host (60%); 64 registers, 1,028 B of shared
+//   memory, no spills (C = 11: 74 registers; run-time C: 106).  The form
+//   this file had before (a block per 256 pixels, run-time C, a division
+//   per thread, 52 five-shuffle reductions per block) took 0.135 ms
+//   (pylc_tpu_torch/tools/time_kernels.py, the two checkouts in turns).
+//   What holds K2a at 65%: about 260 instructions per pixel (nine accurate
+//   expf, two logf, a division, 3C accumulations) are 17 us of issue at
+//   one instruction per scheduler and clock, beside 23 us of memory, and
+//   the two do not overlap fully.
+//   Tried on the same card and not kept: a staged forward kernel (spans
+//   through two shared-memory buffers, the cp.async of span k + 1 in flight
+//   during the arithmetic of span k; 64 registers, 19,460 B of shared
+//   memory, 4 resident blocks) took 0.037 ms from a graph and 0.040-0.041
+//   from a host loop, 0.002 ms more than this kernel on the same tensor in
+//   turns: staging buys a read what L1 gives it anyway.  The final sum by
+//   the last block to finish (a ticket counter behind __threadfence) took
+//   0.042 ms against the second kernel's 0.040: its 4-byte memset and
+//   fence cost more than the second launch (2.1 us).  8, 4 and 32 chunks
+//   per block took 0.041, 0.045 and 0.046 ms against 16's 0.040 (these on
+//   the staged form, host loops).
+//
+// K2b's design:
+//   - fused_loss_backward_staged_kernel<C>: a block stages one span, each
+//     thread writes its dlogits back into its pixel's slots, and the block
+//     stores the span with 16-byte coalesced writes.  Blocks are not
+//     persistent: six resident blocks per SM in different phases overlap
+//     one's loads with another's arithmetic.
+//   - fused_loss_backward_direct_kernel<C>: one thread per pixel.
 //   Both: the per-class dice terms g_c take two values (target or not), so
 //   the first C threads compute them once per block, with a_ce per class;
 //   p = e * (1 / sum) instead of C divisions; pow(1-q, gamma) is
@@ -84,23 +131,25 @@
 namespace {
 
 constexpr int kMaxC = 16;                 // most classes a thread holds
-constexpr int kThreads = 256;             // pixels per block
+constexpr int kThreads = 256;             // pixels per span
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxV = 3 * kMaxC + 4;      // partials per block
+constexpr int kFwdSpans = 16;             // chunks of kThreads pixels a K2a
+                                          // block walks
+constexpr int kFwdPixels = kThreads * kFwdSpans;  // pixels per K2a block
 constexpr int kReduceThreads = 1024;      // the one block of the final sum
 
 struct Layout {
-  long long N;   // pixels, B * H * W
   long long HW;  // pixels per image
   long long sB;  // batch stride (elements)
   long long sC;  // class stride
   long long sP;  // stride of the merged (H, W) pixel index
 };
 
-__device__ __forceinline__ long long offset(const Layout& L, long long n) {
-  const long long b = n / L.HW;
-  return b * L.sB + (n - b * L.HW) * L.sP;
-}
+// Registers a thread keeps per class: CT > 0 is a compile-time class
+// count; CT == 0 takes C <= kMaxC at run time, with the class loops
+// unrolled to kMaxC under a test.
+template <int CT>
+constexpr int kClassSlots = CT > 0 ? CT : kMaxC;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -114,122 +163,200 @@ __device__ __forceinline__ double warp_sum(double v) {
   return v;
 }
 
-// Softmax of one pixel's logits into p[]; returns log(sum exp(x - max)) and
-// the max through its arguments.
-__device__ __forceinline__ void softmax(const float* __restrict__ x,
-                                        long long base, long long sC, int C,
-                                        float (&p)[kMaxC], float& mx,
-                                        float& lse) {
+// v[] holds a pixel's logits on entry and exp(logit - max) on return;
+// returns their sum, and the max through mx.
+template <int CT>
+__device__ __forceinline__ float softmax_exp(float (&v)[kClassSlots<CT>],
+                                             int C, float& mx) {
   mx = -INFINITY;
 #pragma unroll
-  for (int c = 0; c < kMaxC; ++c) {
-    if (c < C) {
-      p[c] = x[base + c * sC];
-      mx = fmaxf(mx, p[c]);
-    }
+  for (int c = 0; c < kClassSlots<CT>; ++c) {
+    if (CT > 0 || c < C) mx = fmaxf(mx, v[c]);
   }
   float se = 0.f;
 #pragma unroll
-  for (int c = 0; c < kMaxC; ++c) {
-    if (c < C) {
-      p[c] = expf(p[c] - mx);
-      se += p[c];
+  for (int c = 0; c < kClassSlots<CT>; ++c) {
+    if (CT > 0 || c < C) {
+      v[c] = expf(v[c] - mx);
+      se += v[c];
     }
   }
-#pragma unroll
-  for (int c = 0; c < kMaxC; ++c) {
-    if (c < C) p[c] = p[c] / se;
-  }
-  lse = logf(se);
+  return se;
 }
 
-// K2a, stage 1: one row of partials per block.
-__global__ void __launch_bounds__(kThreads)
-fused_loss_partials_kernel(const float* __restrict__ x,
-                           const uint8_t* __restrict__ t,
-                           const float* __restrict__ cw,
-                           float* __restrict__ partials, int C, Layout L,
-                           int weighted, float alpha, float gamma,
-                           float eps) {
-  __shared__ float warp_rows[kWarps][kMaxV];
-  const int V = 3 * C + 4;
+// ------------------------------------------------------------------- //
+// K2a
+// ------------------------------------------------------------------- //
+
+struct FwdParams {
+  int weighted;
+  float alpha, gamma, eps;
+};
+
+// A thread's partial sums live in slots: [c] inter, [S + c] sump,
+// [2 S + c] cnt with S = kClassSlots<CT>, then nll_sum, wsum, focal_sum,
+// count.  With a compile-time C the slots are the 3C + 4 statistics in
+// order.
+template <int CT>
+constexpr int kFwdSlots = 3 * kClassSlots<CT> + 4;
+
+// Where slot s goes in the statistics vector; -1: a class slot beyond C.
+template <int CT>
+__device__ __forceinline__ int slot_index(int s, int C) {
+  if (CT > 0) return s;
+  const int group = s / kMaxC, c = s % kMaxC;
+  if (group == 3) return 3 * C + c;
+  return c < C ? group * C + c : -1;
+}
+
+// One pixel: v[] holds its logits, y its target (-1: a target outside
+// [0, C) has no class) and xy the target's logit; its terms are added to
+// acc[].  cw_s holds the C class weights (ones when unweighted).
+template <int CT>
+__device__ __forceinline__ void forward_pixel(
+    float (&v)[kClassSlots<CT>], int C, int y, float xy,
+    const float* __restrict__ cw_s, const FwdParams& P,
+    float (&acc)[kFwdSlots<CT>]) {
+  constexpr int S = kClassSlots<CT>;
+  float mx;
+  const float se = softmax_exp<CT>(v, C, mx);
+  const float inv_se = 1.f / se;
+  float py = 0.f;
+#pragma unroll
+  for (int c = 0; c < S; ++c) {
+    if (CT > 0 || c < C) {
+      const float p = v[c] * inv_se;
+      acc[S + c] += p;
+      if (c == y) {
+        py = p;
+        acc[c] += p;
+        acc[2 * S + c] += 1.f;
+      }
+    }
+  }
+  const float wy = y >= 0 ? cw_s[y] : (P.weighted ? 0.f : 1.f);
+  const float nll = y >= 0 ? -((xy - mx) - logf(se)) : 0.f;
+  const float q = py + P.eps;
+  const float b = 1.f - q;
+  const float pw = P.gamma == 2.f ? b * b : powf(b, P.gamma);
+  acc[3 * S + 0] += nll * wy;
+  acc[3 * S + 1] += wy;
+  acc[3 * S + 2] += -P.alpha * pw * logf(q);
+  acc[3 * S + 3] += 1.f;
+}
+
+// One step of the halving butterfly over w[0 .. 2 O): the lanes whose bit O
+// is set keep the upper O values, the others the lower, and each adds its
+// partner's copy of what it keeps.
+template <int O>
+__device__ __forceinline__ void halve(float (&w)[32], int lane) {
+  const bool upper = (lane & O) != 0;
+#pragma unroll
+  for (int i = 0; i < O; ++i) {
+    const float keep = upper ? w[i + O] : w[i];
+    const float send = upper ? w[i] : w[i + O];
+    w[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+  }
+}
+
+// Sums every slot of vals[] over the block's threads, in an order that
+// depends on nothing but the thread index: thread s < V returns slot s's
+// sum (the others return 0).  rows is shared memory, [kWarps][V].
+template <int V>
+__device__ __forceinline__ float block_sum_slots(const float (&vals)[V],
+                                                 float (*rows)[V]) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const long long n = static_cast<long long>(blockIdx.x) * kThreads +
-                      threadIdx.x;
-
-  float p[kMaxC];
-  int y = -1;  // -1: no pixel, or a target outside [0, C)
-  float nll = 0.f, px_w = 0.f, focal = 0.f, valid = 0.f;
-  if (n < L.N) {
-    valid = 1.f;
-    const long long base = offset(L, n);
-    const int target = t[n];
-    float mx, lse;
-    softmax(x, base, L.sC, C, p, mx, lse);
-    float xy = 0.f, py = 0.f, wy = 0.f;
+  float w[32];
 #pragma unroll
-    for (int c = 0; c < kMaxC; ++c) {
-      if (c < C && c == target) {
-        y = c;
-        xy = x[base + c * L.sC];
-        py = p[c];
-        wy = weighted ? cw[c] : 1.f;
-      }
-    }
-    if (y >= 0) nll = -((xy - mx) - lse);
-    px_w = weighted ? wy : 1.f;
-    const float q = py + eps;
-    focal = -alpha * powf(1.f - q, gamma) * logf(q);
-  } else {
+  for (int i = 0; i < 32; ++i) w[i] = i < V ? vals[i] : 0.f;
+  halve<16>(w, lane);
+  halve<8>(w, lane);
+  halve<4>(w, lane);
+  halve<2>(w, lane);
+  halve<1>(w, lane);  // lane s now holds slot s over the warp
+  if (lane < V) rows[warp][lane] = w[0];
 #pragma unroll
-    for (int c = 0; c < kMaxC; ++c) p[c] = 0.f;
-  }
-
-#pragma unroll
-  for (int c = 0; c < kMaxC; ++c) {
-    if (c < C) {
-      const float oh = (c == y) ? 1.f : 0.f;
-      const float inter = warp_sum(p[c] * oh);
-      const float sump = warp_sum(p[c]);
-      const float cnt = warp_sum(oh);
-      if (lane == 0) {
-        warp_rows[warp][c] = inter;
-        warp_rows[warp][C + c] = sump;
-        warp_rows[warp][2 * C + c] = cnt;
-      }
-    }
-  }
-  const float s_nll = warp_sum(nll * px_w);
-  const float s_w = warp_sum(px_w);
-  const float s_focal = warp_sum(focal * valid);
-  const float s_count = warp_sum(valid);
-  if (lane == 0) {
-    warp_rows[warp][3 * C + 0] = s_nll;
-    warp_rows[warp][3 * C + 1] = s_w;
-    warp_rows[warp][3 * C + 2] = s_focal;
-    warp_rows[warp][3 * C + 3] = s_count;
+  for (int s = 32; s < V; ++s) {
+    const float sum = warp_sum(vals[s]);
+    if (lane == 0) rows[warp][s] = sum;
   }
   __syncthreads();
+  float total = 0.f;
   if (threadIdx.x < V) {
-    float s = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += warp_rows[w][threadIdx.x];
-    partials[static_cast<long long>(blockIdx.x) * V + threadIdx.x] = s;
+    for (int k = 0; k < kWarps; ++k) total += rows[k][threadIdx.x];
+  }
+  return total;
+}
+
+// K2a, any accepted layout: one thread per pixel at the logits' strides;
+// blockIdx.y is the image, and block (bx, by) takes its pixels
+// [bx kFwdPixels, (bx + 1) kFwdPixels).
+template <int CT>
+__global__ void __launch_bounds__(kThreads)
+fused_loss_forward_direct_kernel(const float* __restrict__ x,
+                                 const uint8_t* __restrict__ t,
+                                 const float* __restrict__ cw,
+                                 float* __restrict__ partials, int C,
+                                 Layout L, FwdParams P) {
+  constexpr int S = kClassSlots<CT>;
+  __shared__ float rows[kWarps][kFwdSlots<CT>];
+  __shared__ float cw_s[S];
+  if (threadIdx.x < C) cw_s[threadIdx.x] = P.weighted ? cw[threadIdx.x] : 1.f;
+  __syncthreads();
+
+  float acc[kFwdSlots<CT>];
+#pragma unroll
+  for (int s = 0; s < kFwdSlots<CT>; ++s) acc[s] = 0.f;
+
+  const long long b = blockIdx.y;
+  const long long hw0 = static_cast<long long>(blockIdx.x) * kFwdPixels +
+                        threadIdx.x;
+  for (int k = 0; k < kFwdSpans; ++k) {
+    const long long hw = hw0 + static_cast<long long>(k) * kThreads;
+    if (hw < L.HW) {
+      const long long base = b * L.sB + hw * L.sP;
+      const int target = t[b * L.HW + hw];
+      float v[S];
+#pragma unroll
+      for (int c = 0; c < S; ++c) {
+        if (CT > 0 || c < C) v[c] = x[base + c * L.sC];
+      }
+      int y = -1;
+      float xy = 0.f;
+#pragma unroll
+      for (int c = 0; c < S; ++c) {
+        if ((CT > 0 || c < C) && c == target) {
+          y = c;
+          xy = v[c];
+        }
+      }
+      forward_pixel<CT>(v, C, y, xy, cw_s, P, acc);
+    }
+  }
+  // the block's row of partials[3C + 4][n_rows]
+  const int row = blockIdx.y * gridDim.x + blockIdx.x;
+  const int n_rows = gridDim.x * gridDim.y;
+  const float total = block_sum_slots<kFwdSlots<CT>>(acc, rows);
+  if (threadIdx.x < kFwdSlots<CT>) {
+    const int v = slot_index<CT>(threadIdx.x, C);
+    if (v >= 0) partials[static_cast<long long>(v) * n_rows + row] = total;
   }
 }
 
-// K2a, stage 2: one block sums the rows, warp w taking values w, w + 32, ...
+// K2a's second kernel: one block sums the rows of partials[V][n_rows] in
+// double, warp w taking values w, w + 32, ..., its lanes the rows lane,
+// lane + 32, ...
 __global__ void __launch_bounds__(kReduceThreads)
 fused_loss_reduce_kernel(const float* __restrict__ partials,
                          float* __restrict__ out, int n_rows, int V) {
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int v = warp; v < V; v += kReduceThreads / 32) {
+  for (int v = threadIdx.x >> 5; v < V; v += kReduceThreads / 32) {
+    const float* row = partials + static_cast<long long>(v) * n_rows;
     double s = 0.0;
-    for (int r = lane; r < n_rows; r += 32) {
-      s += static_cast<double>(partials[static_cast<long long>(r) * V + v]);
-    }
+#pragma unroll 8
+    for (int r = lane; r < n_rows; r += 32) s += static_cast<double>(row[r]);
     s = warp_sum(s);
     if (lane == 0) out[v] = static_cast<float>(s);
   }
@@ -288,26 +415,13 @@ __device__ __forceinline__ void load_stats(BwdStats& s,
 }
 
 // One pixel: v[] holds its logits on entry and its dlogits on return.
-// CT > 0 is a compile-time class count; CT == 0 takes C <= kMaxC at run
-// time, with the loops unrolled to kMaxC under a test.
 template <int CT>
 __device__ __forceinline__ void backward_pixel(
-    float (&v)[CT > 0 ? CT : kMaxC], int C, int target, const BwdStats& s,
+    float (&v)[kClassSlots<CT>], int C, int target, const BwdStats& s,
     const BwdParams& P) {
-  constexpr int kN = CT > 0 ? CT : kMaxC;
-  float mx = -INFINITY;
-#pragma unroll
-  for (int c = 0; c < kN; ++c) {
-    if (CT > 0 || c < C) mx = fmaxf(mx, v[c]);
-  }
-  float se = 0.f;
-#pragma unroll
-  for (int c = 0; c < kN; ++c) {
-    if (CT > 0 || c < C) {
-      v[c] = expf(v[c] - mx);
-      se += v[c];
-    }
-  }
+  constexpr int kN = kClassSlots<CT>;
+  float mx;
+  const float se = softmax_exp<CT>(v, C, mx);
   const float inv_se = 1.f / se;
   int y = C;  // C: a target outside [0, C) has no class
   float py = 0.f;
@@ -410,7 +524,7 @@ fused_loss_backward_direct_kernel(const float* __restrict__ x,
                                   const float* __restrict__ cotangent,
                                   float* __restrict__ dx, int C, Layout L,
                                   BwdParams P) {
-  constexpr int kN = CT > 0 ? CT : kMaxC;
+  constexpr int kN = kClassSlots<CT>;
   __shared__ BwdStats stats;
   load_stats(stats, acc, cw, cotangent, C, P);
   __syncthreads();
@@ -433,27 +547,45 @@ fused_loss_backward_direct_kernel(const float* __restrict__ x,
   }
 }
 
+// Sizes both kernels take; the image index rides in the grid's y.
 bool layout_ok(int C, long long N, long long HW) {
-  return C >= 1 && C <= kMaxC && N >= 1 && HW >= 1 && N % HW == 0;
+  return C >= 1 && C <= kMaxC && N >= 1 && HW >= 1 && N % HW == 0 &&
+         N / HW <= 65535;
 }
 
-long long n_blocks(long long N) { return (N + kThreads - 1) / kThreads; }
+long long ceil_div(long long a, long long b) { return (a + b - 1) / b; }
+
+// Class counts with compile-time instantiations (both schemas').
+bool known_classes(int C) { return C == 9 || C == 11; }
 
 }  // namespace
 
-// C entries for ctypes.  Each returns a cudaError_t: the launch's own error
-// (a refused configuration never runs, and a later synchronize would not
-// report it), or cudaErrorInvalidValue for sizes outside the bounds above.
+// C entries for ctypes.  Each launch entry returns a cudaError_t: the
+// launch's own error (a refused configuration never runs, and a later
+// synchronize would not report it), or cudaErrorInvalidValue for sizes
+// outside the bounds above.
 
-// Floats of workspace K2a needs for N pixels and C classes.
-extern "C" long long fused_loss_workspace(long long N, int C) {
-  return n_blocks(N) * (3LL * C + 4);
+// Rows of partials K2a's first kernel writes: one per block, a function of
+// the shape only (a block does not cross images).
+extern "C" long long fused_loss_partial_rows(long long N, long long HW) {
+  return (N / HW) * ceil_div(HW, kFwdPixels);
+}
+
+// Floats of workspace K2a needs for B = N / HW images of HW pixels and C
+// classes: the rows of partials.
+extern "C" long long fused_loss_workspace(long long N, long long HW, int C) {
+  return fused_loss_partial_rows(N, HW) * (3LL * C + 4);
 }
 
 extern "C" int fused_loss_max_classes() { return kMaxC; }
 
+// Which K2a kernel C classes get: 1 a compile-time C, 0 a run-time C.
+extern "C" int fused_loss_forward_variant(int C) {
+  return known_classes(C) ? 1 : 0;
+}
+
 // K2a: out[3C + 4] = (inter[C], sump[C], cnt[C], nll_sum, wsum, focal_sum,
-// count) over all N pixels.  workspace holds fused_loss_workspace(N, C)
+// count) over all N pixels.  workspace holds fused_loss_workspace(N, HW, C)
 // floats.
 extern "C" int fused_loss_forward_f32(const float* x, const uint8_t* t,
                                       const float* cw, float* workspace,
@@ -463,16 +595,25 @@ extern "C" int fused_loss_forward_f32(const float* x, const uint8_t* t,
                                       int weighted, float alpha, float gamma,
                                       float eps, void* stream) {
   if (!layout_ok(C, N, HW)) return static_cast<int>(cudaErrorInvalidValue);
-  const Layout L{N, HW, sB, sC, sP};
-  const long long blocks = n_blocks(N);
+  const Layout L{HW, sB, sC, sP};
+  const FwdParams P{weighted, alpha, gamma, eps};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  fused_loss_partials_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                               s>>>(x, t, cw, workspace, C, L, weighted,
-                                    alpha, gamma, eps);
+  const dim3 grid(static_cast<unsigned>(ceil_div(HW, kFwdPixels)),
+                  static_cast<unsigned>(N / HW));
+  if (C == 9) {
+    fused_loss_forward_direct_kernel<9><<<grid, kThreads, 0, s>>>(
+        x, t, cw, workspace, C, L, P);
+  } else if (C == 11) {
+    fused_loss_forward_direct_kernel<11><<<grid, kThreads, 0, s>>>(
+        x, t, cw, workspace, C, L, P);
+  } else {
+    fused_loss_forward_direct_kernel<0><<<grid, kThreads, 0, s>>>(
+        x, t, cw, workspace, C, L, P);
+  }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   fused_loss_reduce_kernel<<<1, kReduceThreads, 0, s>>>(
-      workspace, out, static_cast<int>(blocks), 3 * C + 4);
+      workspace, out, static_cast<int>(grid.x * grid.y), 3 * C + 4);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -482,11 +623,10 @@ extern "C" int fused_loss_forward_f32(const float* x, const uint8_t* t,
 extern "C" int fused_loss_backward_variant(const float* x, const float* dx,
                                            int C, long long HW, long long sB,
                                            long long sC, long long sP) {
-  const bool known = C == 9 || C == 11;
   const bool flat = sC == 1 && sP == C && sB == HW * C;
   const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(dx) % 16 == 0;
-  return known ? (flat && aligned ? 2 : 1) : 0;
+  return known_classes(C) ? (flat && aligned ? 2 : 1) : 0;
 }
 
 // K2b: dx (at the logits' strides) from K2a's out vector `acc` and the
@@ -503,16 +643,14 @@ extern "C" int fused_loss_backward_f32(const float* x, const uint8_t* t,
                                        float smooth, float w_ce,
                                        float w_dice, float w_focal,
                                        int direct, void* stream) {
-  if (!layout_ok(C, N, HW) || N / HW > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const Layout L{N, HW, sB, sC, sP};
+  if (!layout_ok(C, N, HW)) return static_cast<int>(cudaErrorInvalidValue);
+  const Layout L{HW, sB, sC, sP};
   const BwdParams P{weighted, alpha, gamma, eps, smooth, w_ce, w_dice,
                     w_focal};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int variant = fused_loss_backward_variant(x, dx, C, HW, sB, sC, sP);
   if (variant == 2 && !direct) {
-    const unsigned blocks = static_cast<unsigned>(n_blocks(N));
+    const unsigned blocks = static_cast<unsigned>(ceil_div(N, kThreads));
     if (C == 9) {
       fused_loss_backward_staged_kernel<9><<<blocks, kThreads, 0, s>>>(
           x, t, cw, acc, cotangent, dx, N, P);
@@ -522,7 +660,7 @@ extern "C" int fused_loss_backward_f32(const float* x, const uint8_t* t,
     }
     return static_cast<int>(cudaGetLastError());
   }
-  const dim3 grid(static_cast<unsigned>(n_blocks(HW)),
+  const dim3 grid(static_cast<unsigned>(ceil_div(HW, kThreads)),
                   static_cast<unsigned>(N / HW));
   if (C == 9) {
     fused_loss_backward_direct_kernel<9><<<grid, kThreads, 0, s>>>(

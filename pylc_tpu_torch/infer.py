@@ -12,12 +12,19 @@ current stream, and only the class-map copy to the host waits for them.
     -> optional dense-CRF mean-field refinement (kernel K1)
     -> uint8 argmax -> one copy of the class map to the host
   -> palette colourize on the host (``native.colourize``).
+
+``segment_many`` pipelines a sequence of same-shape photos on a CUDA
+device (photo k + 1's upload on a copy stream from pinned memory while
+photo k computes, the class map's download without blocking the host, the
+colourize of photo k on a worker thread while the main thread launches
+photo k + 1); eager PyTorch overlaps none of this by itself.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, Optional
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -32,6 +39,10 @@ from pylc_tpu_torch.utils.imageio import adjust_to_tile, get_image
 PROBS_BF16_BYTES = 256 * 2 ** 20
 
 STAGES = ("h2d", "forward_stitch", "crf", "d2h", "colourize")
+
+#: pinned host buffers ``segment_many`` rotates, for the photos and for
+#: the class maps: one in a copy while the host fills or reads the other
+MANY_BUFFERS = 2
 
 
 class Segmenter:
@@ -72,6 +83,17 @@ class Segmenter:
             probs[i:i + self.batch_size] = torch.softmax(logits, dim=-1)
         return stitch_probs(probs, n_rows, n_cols, tile, stride)
 
+    def _compute(self, dev: torch.Tensor, stride: int,
+                 mark: Callable[[str], None]):
+        """Enqueue the device work for one [H, W, C] uint8 image on the
+        device -> (class map, canvas), both on the device."""
+        canvas = self._canvas(dev, stride)
+        mark("forward_stitch")
+        if self.crf is not None:
+            canvas = self.crf(canvas, dev)
+        mark("crf")
+        return canvas.argmax(dim=-1).to(torch.uint8), canvas
+
     def _launch(self, img: np.ndarray, stride: int,
                 mark: Callable[[str], None]):
         """Enqueue the device work for one image -> (class map and canvas
@@ -80,12 +102,7 @@ class Segmenter:
             img = img[..., None]
         dev = torch.from_numpy(np.ascontiguousarray(img)).to(self.device)
         mark("h2d")
-        canvas = self._canvas(dev, stride)
-        mark("forward_stitch")
-        if self.crf is not None:
-            canvas = self.crf(canvas, dev)
-        mark("crf")
-        class_map = canvas.argmax(dim=-1).to(torch.uint8)
+        class_map, canvas = self._compute(dev, stride, mark)
         return class_map, canvas, img.shape[0] * img.shape[1] / 1e6
 
     def _fetch(self, class_map: torch.Tensor, canvas: torch.Tensor,
@@ -138,6 +155,115 @@ class Segmenter:
             if cuda and name != "colourize" else host[i + 1] - host[i]
             for i, name in enumerate(STAGES)}
         return res
+
+    def segment_many(self, imgs: Sequence[np.ndarray],
+                     stride: Optional[int] = None) -> List[Dict]:
+        """Segment a sequence of fitted images of one shape (a folder of
+        photos from one camera), pipelined on a CUDA device.
+
+        Returns a list of dicts like ``segment_array``'s without 'probs':
+        'class_map' and 'mask_rgb' (each equal to ``segment_array``'s: the
+        same kernels in the same order), 'megapixels', 'seconds' (marginal
+        wall time: the previous photo's completion to this one's, the
+        first carrying the pipeline's fill, so the sum is the total) and
+        'completed_s' (completion since the start of the call)."""
+        stride = stride or self.cfg.tile_size // 2
+        if len(imgs) == 0:
+            return []
+        imgs = [img[..., None] if img.ndim == 2 else img for img in imgs]
+        H, W = imgs[0].shape[:2]
+        for i, img in enumerate(imgs):
+            if img.shape[:2] != (H, W):
+                raise ValueError(
+                    f"segment_many requires uniform shapes: imgs[{i}] is "
+                    f"{img.shape[:2]}, imgs[0] is {(H, W)} — use "
+                    "segment_stream for mixed-shape batches.")
+            # the pinned buffers take imgs[0]'s channels and dtype
+            if (img.shape, img.dtype) != (imgs[0].shape, imgs[0].dtype):
+                raise ValueError(
+                    f"segment_many requires uniform shapes: imgs[{i}] is "
+                    f"{img.shape} {img.dtype}, imgs[0] is {imgs[0].shape} "
+                    f"{imgs[0].dtype} — use segment_stream for mixed-shape "
+                    "batches.")
+        t0 = time.perf_counter()
+        if self.device.type == "cuda":
+            results = self._many_pipelined(imgs, stride)
+        else:
+            results = []
+            for img in imgs:
+                res = self._fetch(*self._launch(img, stride, _no_mark),
+                                  _no_mark)
+                del res["probs"]
+                results.append((res, time.perf_counter()))
+        out, prev = [], t0
+        for res, done in results:
+            res["seconds"], res["completed_s"] = done - prev, done - t0
+            out.append(res)
+            prev = done
+        return out
+
+    def _many_pipelined(self, imgs: List[np.ndarray], stride: int):
+        """``segment_many`` on a CUDA device -> [(result, host time of its
+        completion)].
+
+        Per photo k the main thread copies the photo into a pinned buffer
+        and starts its upload on a copy stream, then launches photo
+        k - 1's compute on the current stream behind the upload's event,
+        then the class map's copy into a pinned buffer with an event of
+        its own; a worker thread waits for that event, copies the class
+        map out and colourizes it.  A pinned buffer is rewritten only
+        after the event (photos) or the worker (class maps) that read it
+        last."""
+        device = self.device
+        megapixels = imgs[0].shape[0] * imgs[0].shape[1] / 1e6
+        compute = torch.cuda.current_stream(device)
+        copy = torch.cuda.Stream(device)
+        slots = min(MANY_BUFFERS, len(imgs))
+        pinned_in = [torch.empty(imgs[0].shape,
+                                 dtype=torch.from_numpy(imgs[0][:0]).dtype,
+                                 pin_memory=True) for _ in range(slots)]
+        pinned_out = [torch.empty(imgs[0].shape[:2], dtype=torch.uint8,
+                                  pin_memory=True) for _ in range(slots)]
+        uploaded: List[Optional[torch.cuda.Event]] = [None] * slots
+
+        def upload(k: int) -> torch.Tensor:
+            slot = k % slots
+            if uploaded[slot] is not None:
+                uploaded[slot].synchronize()  # the buffer's last copy
+            np.copyto(pinned_in[slot].numpy(), imgs[k])
+            with torch.cuda.stream(copy):
+                dev = pinned_in[slot].to(device, non_blocking=True)
+                uploaded[slot] = torch.cuda.Event()
+                uploaded[slot].record(copy)
+            # allocated on the copy stream, read on the compute stream: the
+            # allocator must not hand it out again before those reads end
+            dev.record_stream(compute)
+            return dev
+
+        def finish(slot: int, fetched: torch.cuda.Event):
+            fetched.synchronize()
+            class_map = pinned_out[slot].numpy().copy()
+            mask_rgb = native.colourize(class_map, self.palette)
+            return ({"mask_rgb": mask_rgb, "class_map": class_map,
+                     "megapixels": megapixels}, time.perf_counter())
+
+        futures = []
+        with ThreadPoolExecutor(max_workers=1) as worker:
+            dev = upload(0)
+            for k in range(len(imgs)):
+                slot = k % slots
+                ready = uploaded[slot]
+                nxt = upload(k + 1) if k + 1 < len(imgs) else None
+                compute.wait_event(ready)
+                class_map, _ = self._compute(dev, stride, _no_mark)
+                if k >= slots:
+                    futures[k - slots].result()  # frees pinned_out[slot]
+                pinned_out[slot].copy_(class_map, non_blocking=True)
+                fetched = torch.cuda.Event()
+                fetched.record(compute)
+                futures.append(worker.submit(finish, slot, fetched))
+                dev = nxt
+            return [f.result() for f in futures]
 
     def segment_stream(self, items, stride: Optional[int] = None):
         """Generator over (tag, fitted image) pairs with one image of

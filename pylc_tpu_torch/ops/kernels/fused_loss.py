@@ -8,10 +8,12 @@ that reduces the logits to the 3C + 4 statistics all three losses need;
 gradient per pixel from those statistics.  The kernels are
 ``pylc_tpu_torch/csrc/fused_loss.cu`` (its header gives the math, the
 bounds and the design), built by ``_build`` and called through ``ctypes``
-on PyTorch's current stream.  K2b has two kernels, and
-``backward_variant`` says which one a logits tensor gets: one that stages
-a block's span through shared memory, for dense ``channels_last`` logits
-with 9 or 11 classes, and a direct one for every other accepted layout.
+on PyTorch's current stream.  K2a has one kernel for every accepted
+layout, with the class count at compile time for 9 and 11 classes
+(``forward_variant``).  K2b has two kernels, and ``backward_variant`` says
+which one a logits tensor gets: one that stages a block's span through
+shared memory, for dense ``channels_last`` logits with 9 or 11 classes,
+and a direct one for every other accepted layout.
 
 Logits are ``[B, C, H, W]`` f32, either contiguous NCHW or
 ``channels_last`` (the train step hands over the latter); targets are
@@ -21,8 +23,8 @@ Logits are ``[B, C, H, W]`` f32, either contiguous NCHW or
 Each wrapper takes the plain torch version for tensors on the CPU and
 launches its kernel for CUDA tensors; there is no other choice between
 the two.  ``fused_loss_forward.launches`` and
-``fused_loss_backward.launches`` count kernel launches (K2a's two stages
-count as one launch).
+``fused_loss_backward.launches`` count kernel launches (K2a's partial sums
+and its final sum count as one launch).
 """
 
 from __future__ import annotations
@@ -40,9 +42,10 @@ SOURCE = _build.source_path("fused_loss")
 # the bound compiled into the kernels (kMaxC in the source); the Pallas
 # kernel takes up to 128 classes
 MAX_CLASSES = 16
-# class counts with compile-time instantiations of K2b (both schemas')
+# class counts with compile-time instantiations of K2a and K2b (both
+# schemas')
 KNOWN_CLASSES = (9, 11)
-# K2b's direct kernel puts the image index into the grid's y dimension
+# the direct kernels put the image index into the grid's y dimension
 MAX_BATCH = 65535
 
 
@@ -58,13 +61,15 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("fused_loss")
     vp, ci, cf, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
         ctypes.c_longlong
-    lib.fused_loss_workspace.argtypes = [cl, ci]
+    lib.fused_loss_workspace.argtypes = [cl, cl, ci]
     lib.fused_loss_workspace.restype = cl
     lib.fused_loss_max_classes.argtypes = []
     lib.fused_loss_max_classes.restype = ci
     lib.fused_loss_forward_f32.argtypes = [vp, vp, vp, vp, vp, ci, cl, cl,
                                            cl, cl, cl, ci, cf, cf, cf, vp]
     lib.fused_loss_forward_f32.restype = ci
+    lib.fused_loss_forward_variant.argtypes = [ci]
+    lib.fused_loss_forward_variant.restype = ci
     lib.fused_loss_backward_f32.argtypes = [vp, vp, vp, vp, vp, vp, ci, cl,
                                             cl, cl, cl, cl, ci, cf, cf, cf,
                                             cf, cf, cf, cf, ci, vp]
@@ -212,10 +217,21 @@ def _pixel_stride(logits: torch.Tensor) -> int:
     return logits.stride(3) if logits.shape[3] > 1 else logits.stride(2)
 
 
-# names of K2b's kernels, by the code ``fused_loss_backward_variant``
-# returns for a layout
-BACKWARD_VARIANTS = {2: "staged<C={C}>", 1: "direct<C={C}>",
-                     0: "direct<runtime C>"}
+# names of the kernels, by the code ``fused_loss_forward_variant`` and
+# ``fused_loss_backward_variant`` return
+VARIANTS = {2: "staged<C={C}>", 1: "direct<C={C}>", 0: "direct<runtime C>"}
+
+
+def forward_variant_code(logits: torch.Tensor) -> int:
+    """Which instantiation of K2a's kernel ``logits`` gets, as the
+    library's dispatch decides it: 1 a compile-time class count, 0 a
+    run-time class count."""
+    return 1 if logits.shape[1] in KNOWN_CLASSES else 0
+
+
+def forward_variant(logits: torch.Tensor) -> str:
+    """Name of the K2a kernel that ``logits`` runs on."""
+    return VARIANTS[forward_variant_code(logits)].format(C=logits.shape[1])
 
 
 def backward_variant_code(logits: torch.Tensor, aligned: bool = True) -> int:
@@ -236,7 +252,7 @@ def backward_variant_code(logits: torch.Tensor, aligned: bool = True) -> int:
 def backward_variant(logits: torch.Tensor) -> str:
     """Name of the K2b kernel that ``logits`` runs on."""
     code = backward_variant_code(logits, logits.data_ptr() % 16 == 0)
-    return BACKWARD_VARIANTS[code].format(C=logits.shape[1])
+    return VARIANTS[code].format(C=logits.shape[1])
 
 
 def fused_loss_forward(logits: torch.Tensor, target: torch.Tensor,
@@ -246,7 +262,7 @@ def fused_loss_forward(logits: torch.Tensor, target: torch.Tensor,
     [B, C, H, W] against ``target`` [B, H, W].
 
     A CPU tensor goes through ``fused_forward_reference``; a CUDA tensor
-    through the kernel, or this raises."""
+    through the kernel ``forward_variant`` names, or this raises."""
     if logits.device.type == "cpu":
         return fused_forward_reference(logits, target, class_weights, w)
     if logits.device.type != "cuda":
@@ -255,7 +271,7 @@ def fused_loss_forward(logits: torch.Tensor, target: torch.Tensor,
     C, N, HW, sB, sC, sP, cw = _check(logits, target, class_weights,
                                       "fused_loss_forward")
     lib = _library()
-    workspace = torch.empty(lib.fused_loss_workspace(N, C),
+    workspace = torch.empty(lib.fused_loss_workspace(N, HW, C),
                             dtype=torch.float32, device=logits.device)
     acc = torch.empty(3 * C + 4, dtype=torch.float32, device=logits.device)
     with torch.cuda.device(logits.device):

@@ -12,13 +12,14 @@ from __future__ import annotations
 import os
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
 
 from pylc_tpu_torch.config import Config
 from pylc_tpu_torch.convert import load_pth_model
+from pylc_tpu_torch.device import resolve_device
 from pylc_tpu_torch.evaluate import Evaluator
 from pylc_tpu_torch.infer import Segmenter
 from pylc_tpu_torch.ops.tiles import grid_dims
@@ -27,9 +28,10 @@ from pylc_tpu_torch.utils.imageio import adjust_to_tile, collate, get_image
 
 
 def load_model(model_path: str, base_cfg: Optional[Config] = None,
-               device: torch.device = torch.device("cpu")
+               device: Union[str, torch.device, None] = None
                ) -> Tuple[Config, nn.Module, Callable]:
-    """Load a reference-schema ``.pth`` onto ``device``.
+    """Load a reference-schema ``.pth`` onto ``device`` (default ``cuda``;
+    without a card this raises unless the caller passes ``"cpu"``).
 
     Returns (cfg, model, predict_fn)."""
     if not model_path or not os.path.exists(model_path):
@@ -38,6 +40,7 @@ def load_model(model_path: str, base_cfg: Optional[Config] = None,
         raise NotImplementedError(
             f"{model_path}: only .pth models load in the port; the JAX "
             "package's .ckpt bridge is ROADMAP Queue 1 item 9")
+    device = resolve_device(str(device or "cuda"))
     cfg, model = load_pth_model(model_path, base_cfg)
     model.to(device)
     return cfg, model, make_predict(cfg, model)
@@ -47,8 +50,11 @@ def test(cfg: Config, model_path: str, img_path: str,
          mask_path: Optional[str] = None, scale: Optional[float] = None,
          save_logits: bool = False, aggregate_metrics: bool = False,
          use_crf: bool = False,
-         device: torch.device = torch.device("cpu")) -> List[dict]:
-    """Run the full test pipeline over one or more images."""
+         device: Union[str, torch.device, None] = None) -> List[dict]:
+    """Run the full test pipeline over one or more images on one device
+    (default ``cuda``; without a card this raises unless the caller passes
+    ``"cpu"``)."""
+    device = resolve_device(str(device or "cuda"))
     cfg, _, predict = load_model(model_path, cfg, device)
     cfg.id = cfg.id or cfg.gen_model_id()
 

@@ -21,6 +21,7 @@ from pylc_tpu.infer import Segmenter as JaxSegmenter
 from pylc_tpu.models.registry import build_model as jax_build_model
 from pylc_tpu.ops.crf import make_crf as jax_make_crf
 from pylc_tpu.train_state import init_state, make_predict as jax_make_predict
+from pylc_tpu_torch.config import Config as PortConfig
 from pylc_tpu_torch.infer import STAGES, Segmenter
 from pylc_tpu_torch.ops.crf import make_crf
 from pylc_tpu_torch.ops.kernels.crf_kernel import crf_iteration
@@ -61,12 +62,24 @@ def port_segmenter(weights):
                      crf=make_crf(cfg, **CRF))
 
 
-def test_segmenter_matches_jax(weights, photo, port_segmenter):
+@pytest.fixture(scope="module")
+def jax_segmenter(weights):
     cfg, state, _ = weights
-    jseg = JaxSegmenter(cfg, state,
+    return JaxSegmenter(cfg, state,
                         jax_make_predict(cfg, jax_build_model(cfg)),
                         batch_size=16, crf=jax_make_crf(cfg, **CRF))
-    want = jseg.segment_array(photo, STRIDE)
+
+
+@pytest.fixture(scope="module")
+def photos(photo):
+    """Three photos of one shape: the archive path's input."""
+    return [photo, np.ascontiguousarray(photo[::-1]),
+            np.ascontiguousarray(photo[:, ::-1])]
+
+
+def test_segmenter_matches_jax(weights, photo, port_segmenter, jax_segmenter):
+    cfg, _, _ = weights
+    want = jax_segmenter.segment_array(photo, STRIDE)
     got = port_segmenter.segment_array(photo, STRIDE)
     assert got["class_map"].shape == (128, 192)
     assert got["class_map"].dtype == np.uint8
@@ -93,6 +106,127 @@ def test_staged_and_stream_agree_with_segment_array(photo, port_segmenter):
                                   base["class_map"])
     assert streamed[1][1]["class_map"].shape == (128, 128)
     assert crf_iteration.launches == 0  # CPU tensors: the plain form
+
+
+def test_segment_many_equals_segment_array(photos, port_segmenter):
+    """The archive path on the CPU: the photos in turn, each result
+    segment_array's own."""
+    many = port_segmenter.segment_many(photos, STRIDE)
+    assert len(many) == len(photos)
+    for img, res in zip(photos, many):
+        base = port_segmenter.segment_array(img, STRIDE)
+        assert sorted(res) == ["class_map", "completed_s", "mask_rgb",
+                               "megapixels", "seconds"]
+        np.testing.assert_array_equal(res["class_map"], base["class_map"])
+        np.testing.assert_array_equal(res["mask_rgb"], base["mask_rgb"])
+        assert res["megapixels"] == base["megapixels"]
+    # marginal wall times: they add up to the last completion
+    done = [r["completed_s"] for r in many]
+    assert done == sorted(done) and all(r["seconds"] > 0 for r in many)
+    assert sum(r["seconds"] for r in many) == pytest.approx(done[-1],
+                                                            rel=1e-9)
+    assert crf_iteration.launches == 0  # CPU tensors: the plain form
+
+
+def test_segment_many_matches_jax(photos, port_segmenter, jax_segmenter):
+    want = jax_segmenter.segment_many(photos, STRIDE)
+    got = port_segmenter.segment_many(photos, STRIDE)
+    assert len(got) == len(want) == len(photos)
+    for g, w in zip(got, want):
+        assert sorted(g) == sorted(w)
+        differ = np.mean(g["class_map"] != w["class_map"])
+        assert differ <= 1e-3, f"class maps differ on {differ:.4%} of pixels"
+        assert g["megapixels"] == w["megapixels"]
+
+
+def _stub_segmenter(n_classes=9, tile=TILE):
+    """A Segmenter over a predict function with no network: the logit of
+    class k is k times the pixel's mean over its channels."""
+    cfg = PortConfig().replace(tile_size=tile, compute_dtype="float32")
+    assert cfg.n_classes == n_classes
+
+    def predict(tiles):
+        mean = tiles.float().mean(dim=-1, keepdim=True) / 255.0
+        return mean * torch.arange(n_classes, dtype=torch.float32)
+
+    return Segmenter(cfg, predict, torch.device("cpu"), batch_size=4)
+
+
+@pytest.mark.parametrize("case", ["empty_list", "empty_tuple", "one_photo",
+                                  "two_dimensional"])
+def test_segment_many_edge_inputs(case):
+    seg = _stub_segmenter()
+    rng = np.random.default_rng(3)
+    if case.startswith("empty"):
+        assert seg.segment_many([] if case == "empty_list" else ()) == []
+        return
+    shape = (64, 128) if case == "two_dimensional" else (64, 128, 3)
+    imgs = [rng.integers(0, 255, shape, dtype=np.uint8)
+            for _ in range(1 if case == "one_photo" else 2)]
+    out = seg.segment_many(imgs, STRIDE)
+    assert len(out) == len(imgs)
+    for img, res in zip(imgs, out):
+        assert res["class_map"].shape == (64, 128)
+        assert res["mask_rgb"].shape == (64, 128, 3)
+        np.testing.assert_array_equal(
+            res["class_map"], seg.segment_array(img, STRIDE)["class_map"])
+
+
+@pytest.mark.parametrize("at", [1, 2])
+def test_segment_many_refuses_mixed_shapes(at):
+    """The JAX package's error text, raised before any photo runs."""
+    seg = _stub_segmenter()
+    imgs = [np.zeros((64, 128, 3), np.uint8) for _ in range(3)]
+    imgs[at] = np.zeros((128, 64, 3), np.uint8)
+    with pytest.raises(ValueError) as err:
+        seg.segment_many(imgs, STRIDE)
+    assert str(err.value) == (
+        f"segment_many requires uniform shapes: imgs[{at}] is (128, 64), "
+        "imgs[0] is (64, 128) — use segment_stream for mixed-shape "
+        "batches.")
+
+
+@pytest.mark.parametrize("odd", [np.zeros((64, 128, 1), np.uint8),
+                                 np.zeros((64, 128), np.uint8),
+                                 np.zeros((64, 128, 3), np.float32)],
+                         ids=["one_channel", "two_dimensional", "float32"])
+def test_segment_many_refuses_mixed_channels_and_dtypes(odd):
+    """The pinned buffers of the CUDA path take imgs[0]'s channels and
+    dtype, so both paths refuse a photo that differs in either."""
+    seg = _stub_segmenter()
+    imgs = [np.zeros((64, 128, 3), np.uint8), odd]
+    with pytest.raises(ValueError, match=r"uniform shapes: imgs\[1\] is "
+                                         r"\(64, 128, [13]\) (uint8|float32)"
+                                         r", imgs\[0\] is \(64, 128, 3\) "
+                                         r"uint8"):
+        seg.segment_many(imgs, STRIDE)
+
+
+def test_segment_many_mixed_shapes_message_is_jax(photo, port_segmenter,
+                                                  jax_segmenter):
+    imgs = [photo, photo[:, :128]]
+    with pytest.raises(ValueError) as want:
+        jax_segmenter.segment_many(imgs, STRIDE)
+    with pytest.raises(ValueError) as got:
+        port_segmenter.segment_many(imgs, STRIDE)
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("entry", ["load_model", "test"])
+def test_tester_runs_on_the_card_unless_asked(entry, weights, tmp_path):
+    """No device given: the tester's entry points resolve to cuda and
+    raise where there is no card; "cpu" has to be asked for."""
+    from pylc_tpu_torch import tester
+    _, _, pth = weights
+    if torch.cuda.is_available():
+        pytest.skip("needs a host without a CUDA device")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        if entry == "load_model":
+            tester.load_model(pth, PortConfig())
+        else:
+            tester.test(PortConfig(), pth, str(tmp_path))
+    cfg, model, _ = tester.load_model(pth, PortConfig(), "cpu")
+    assert next(model.parameters()).device.type == "cpu"
 
 
 def test_cli_writes_segmenter_mask(weights, photo, tmp_path):

@@ -8,6 +8,8 @@ NHWC.  Values agree at rtol 1e-5; gradients (torch autograd against
 ``jax.grad``) at rtol 2e-4, atol 1e-7, the tolerance of
 tests/test_pallas_loss.py: the sums run in another order."""
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +18,7 @@ import torch
 
 from pylc_tpu.ops.losses import LossWeights as JaxLossWeights
 from pylc_tpu.ops.losses import multi_loss as jax_multi_loss
+from pylc_tpu.ops.pallas import fused_loss as jax_fl
 from pylc_tpu.ops.pallas.fused_loss import fused_multi_loss as jax_fused
 from pylc_tpu_torch.ops.kernels import fused_loss as fl
 from pylc_tpu_torch.ops.losses import LossWeights, multi_loss
@@ -225,9 +228,42 @@ def test_backward_variant_choice(logits, aligned, code, name):
     """Which K2b kernel a layout gets: the staged one only for dense
     channels_last logits with a schema's (odd) class count."""
     assert fl.backward_variant_code(logits, aligned) == code
-    assert fl.BACKWARD_VARIANTS[code].format(C=logits.shape[1]) == name
+    assert fl.VARIANTS[code].format(C=logits.shape[1]) == name
     if aligned:
         assert fl.backward_variant(logits) == name
+
+
+@pytest.mark.parametrize("logits,code,name", [
+    (_cl(8, 9, 16, 16), 1, "direct<C=9>"),             # the train step's
+    (_cl(3, 9, 61, 53), 1, "direct<C=9>"),             # ragged last block
+    (_cl(1, 11, 37, 29), 1, "direct<C=11>"),
+    (_cl(1, 11, 5, 1), 1, "direct<C=11>"),             # W = 1
+    (torch.zeros(2, 9, 4, 4), 1, "direct<C=9>"),       # contiguous NCHW
+    (torch.zeros(1, 11, 37, 29), 1, "direct<C=11>"),
+    (_cl(2, 10, 4, 4), 0, "direct<runtime C>"),
+    (_cl(2, 1, 4, 4), 0, "direct<runtime C>"),         # one class
+    (torch.zeros(2, 16, 3, 3), 0, "direct<runtime C>"),
+], ids=lambda v: v if isinstance(v, str) else None)
+def test_forward_variant_choice(logits, code, name):
+    """Which instantiation of K2a's one kernel a tensor gets: by the class
+    count alone, whatever the layout."""
+    assert fl.forward_variant_code(logits) == code
+    assert fl.VARIANTS[code].format(C=logits.shape[1]) == name
+    assert fl.forward_variant(logits) == name
+
+
+def test_forward_variant_takes_an_unaligned_pointer():
+    """A view 4 bytes into 16-byte aligned storage is dense channels_last
+    and not aligned: K2b's direct kernel, and K2a's kernel as ever."""
+    flat = torch.zeros(2 * 4 * 4 * 9 + 1)
+    assert flat.data_ptr() % 16 == 0
+    x = flat[1:].view(2, 4, 4, 9).permute(0, 3, 1, 2)
+    assert x.is_contiguous(memory_format=torch.channels_last)
+    assert x.data_ptr() % 16 == 4
+    assert fl.backward_variant(x) == "direct<C=9>"
+    assert fl.backward_variant(_cl(2, 9, 4, 4)) == "staged<C=9>"
+    assert fl.forward_variant(x) == fl.forward_variant(_cl(2, 9, 4, 4)) \
+        == "direct<C=9>"
 
 
 def test_backward_variant_known_classes_are_the_schemas_and_odd():
@@ -238,8 +274,9 @@ def test_backward_variant_known_classes_are_the_schemas_and_odd():
     with open(fl.SOURCE) as f:
         src = f.read()
     for c in fl.KNOWN_CLASSES:
-        assert f"fused_loss_backward_staged_kernel<{c}>" in src
-        assert f"fused_loss_backward_direct_kernel<{c}>" in src
+        for kernel in ("backward_staged", "backward_direct",
+                       "forward_direct"):
+            assert f"fused_loss_{kernel}_kernel<{c}>" in src
 
 
 @pytest.mark.parametrize("shape,cl", [((2, 9, 5, 7), True),
@@ -260,6 +297,70 @@ def test_plain_backward_at_each_variants_layout(shape, cl):
     dx = fl.fused_loss_backward(xt.detach(), tt, cwt, acc,
                                 torch.tensor(1.0), w)
     np.testing.assert_allclose(dx.numpy(), xt.grad.numpy(), **GRAD_TOL)
+
+
+def _pallas_statistics(x_nhwc, t, cw, jw):
+    """The 3C + 4 statistics from the Pallas forward kernel in interpret
+    mode, in the port's order."""
+    C = x_nhwc.shape[-1]
+    xT, tT, cwp, N = jax_fl._prep(jnp.asarray(x_nhwc),
+                                  jnp.asarray(t.astype(np.int32)),
+                                  jnp.asarray(cw))
+    acc = np.asarray(jax_fl._fused_forward(xT, tT, cwp, jw, N))
+    scalars = acc[[jax_fl._NLL, jax_fl._WSUM, jax_fl._FOCAL, jax_fl._COUNT],
+                  jax_fl._SCALAR]
+    return np.concatenate([acc[:C, jax_fl._INTER], acc[:C, jax_fl._SUMP],
+                           acc[:C, jax_fl._CNT], scalars])
+
+
+@pytest.mark.parametrize("shape,cl,weighted", [
+    ((3, 9, 61, 53), True, True),      # 12 whole chunks of 256 and one of 161
+    ((3, 9, 61, 53), True, False),
+    ((1, 11, 37, 29), True, True),     # schema_b's classes
+    ((1, 11, 37, 29), False, True),    # contiguous NCHW
+    ((3, 10, 4, 6), True, True),       # run-time class count
+    ((2, 4, 33, 65), False, False),
+])
+def test_plain_forward_at_each_variants_layout(shape, cl, weighted):
+    """The plain K2a on the layouts of each kernel variant, with an N no
+    block divides and a tenth of the targets outside [0, C), against the
+    Pallas kernel in interpret mode, statistic by statistic."""
+    B, C, H, W = shape
+    x, t, cw = _inputs(9, B, H, W, C, out_of_range=True)
+    xt = _torch_x(x, channels_last=cl).detach()
+    assert fl.forward_variant(xt) == (
+        f"direct<C={C}>" if C in fl.KNOWN_CLASSES else "direct<runtime C>")
+    got = fl.fused_loss_forward(xt, torch.from_numpy(t),
+                                torch.from_numpy(cw),
+                                LossWeights(weighted=weighted))
+    want = _pallas_statistics(x, t, cw, JaxLossWeights(weighted=weighted))
+    assert got.shape == (3 * C + 4,)
+    np.testing.assert_allclose(got.numpy(), want, rtol=VALUE_RTOL)
+
+
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden",
+                      "reference_goldens.npz")
+
+
+@pytest.mark.parametrize("loss", ["multi_loss", "fused_multi_loss"])
+@pytest.mark.parametrize("channels_last", [False, True],
+                         ids=["contiguous", "channels_last"])
+def test_loss_goldens(loss, channels_last):
+    """The reference implementation's loss values (the goldens of
+    tests/test_golden_parity.py::test_multi_loss_golden, at its
+    tolerances) through the port's plain and fused losses."""
+    g = np.load(GOLDEN)
+    pred = torch.from_numpy(g["loss_pred"]).contiguous(
+        memory_format=torch.channels_last if channels_last
+        else torch.contiguous_format)
+    tgt = torch.from_numpy(g["loss_target"].astype(np.uint8))
+    ce_ref, dice_ref, focal_ref, total_ref = g["loss_values"]
+    fn = multi_loss if loss == "multi_loss" else fl.fused_multi_loss
+    total, aux = fn(pred, tgt)
+    np.testing.assert_allclose(_f(aux["ce"]), ce_ref, rtol=1e-5)
+    np.testing.assert_allclose(_f(aux["dice"]), dice_ref, rtol=1e-5)
+    np.testing.assert_allclose(_f(aux["focal"]), focal_ref, rtol=1e-4)
+    np.testing.assert_allclose(_f(total), total_ref, rtol=1e-4)
 
 
 def test_kernel_wrappers_refuse_a_batch_beyond_the_grid():
@@ -284,8 +385,14 @@ def test_direct_yardstick_has_no_cpu_form():
 
 def test_kernel_source_states_the_bound():
     """The card builds K2 from the package's own source, whose class bound
-    is the wrapper's."""
-    import os
+    is the wrapper's, and whose header says what bounds each kernel."""
     assert os.path.exists(fl.SOURCE)
     with open(fl.SOURCE) as f:
-        assert f"constexpr int kMaxC = {fl.MAX_CLASSES};" in f.read()
+        src = f.read()
+    assert f"constexpr int kMaxC = {fl.MAX_CLASSES};" in src
+    header = src[:src.index("#include")]
+    # K2a reads 77.6 MB at the train step's shape: 23 us at 3.35 TB/s
+    assert "K2a must read 77.6 MB (23 us at" in header
+    assert "3.35 TB/s" in header and "device memory bounds both" in header
+    assert "fused_loss_forward_direct_kernel<C>" in header
+    assert "fused_loss_forward_staged" not in src  # tried, timed, not kept
