@@ -11,21 +11,27 @@ Phases, in order; any failed check raises, and the script exits non-zero:
            csrc/fused_loss.cu) with their register and spill reports, and
            csrc/host_lut.cpp.
   [k1]     K1 against its plain torch version at the serving shape (the
-           tiled kernel), at a ragged shape of the tiled kernel and at a
-           ragged one of the generic kernel; per shape the kernel that
-           ran, its time, the plain version's, the generic kernel's (in
-           turns with it) and the bound.
+           tiled kernel), at 1024x1792 with schema_b's 11 classes beside
+           a grayscale photo, at a ragged shape of each of the four tiled
+           instantiations and at a ragged one of the generic kernel; per
+           shape the kernel that ran, its time, the plain version's, the
+           generic kernel's (in turns with it) and the bound.  Fails if a
+           tiled instantiation was not launched.
   [k2]     K2a and K2b against their plain versions at the training
            slice's [8, 9, 512, 512] channels_last logits (weighted and
            not), at a ragged channels_last [3, 9, 61, 53], a ragged
            contiguous [1, 11, 37, 29] and a ragged channels_last
            [2, 6, 45, 37] (a run-time class count), these with targets
-           outside [0, C): K2a's 3C + 4 statistics entry by entry and the
+           outside [0, C); at schema_b's [8, 11, 512, 512] and a ragged
+           [3, 11, 61, 53], both channels_last, and at the U-Net's
+           [8, 9, 324, 324] channels_last: K2a's 3C + 4 statistics entry by entry and the
            losses from them, twice for bit-equal results, K2b's dlogits
            against the plain backward fed by the plain forward, and K2b's
            direct kernel held to the same limit; per shape the kernels
            that ran, the times (K2b in turns with its direct kernel) and
-           the bounds.
+           the bounds.  Fails if a compile-time instantiation (K2a's and
+           K2b's direct kernels and K2b's staged kernel, each at 9 and 11
+           classes) was not launched.
   [net]    the f32 network on the card against the same network on the
            CPU.
   [slice]  the segmentation path: ``Segmenter`` with the CRF on, at full
@@ -33,11 +39,11 @@ Phases, in order; any failed check raises, and the script exits non-zero:
            stride 256) on a seeded 3584x2048 photo, with random weights
            from a seeded ``torch.Generator`` that go through a
            reference-schema ``.pth`` and ``load_pth_model``.
-  [many]   the archive path: 8 seeded 3584x2048 photos through
+  [many]   the archive path: 4 seeded 3584x2048 photos through
            ``Segmenter.segment_many`` (pinned buffers, a copy stream, the
-           colourize on a worker thread) and the same 8 through
+           colourize on a worker thread) and the same 4 through
            ``segment_array`` one after the other, in turns: every class
-           map and mask equal, K1 launched 5 x 8 times, total wall and
+           map and mask equal, K1 launched 5 x 4 times, total wall and
            MP/s of both, each photo's completion time, peak memory, and
            the device's busy time per photo under ``torch.profiler``.
   [cli]    the ``test`` CLI on a 3872x2592 JPEG.
@@ -48,6 +54,24 @@ Phases, in order; any failed check raises, and the script exits non-zero:
            through ``tester.load_model`` and segments a 1024x1024 photo;
            then 10 timed steps on one fixed batch, whose loss must fall,
            one of them under ``torch.profiler``.
+  [zoo]    the rest of the model zoo at full width and depth, seeded
+           weights: for each of eight models (DeepLab on Xception,
+           MobileNetV2 and DRN-D-54; U-Net and ResUNet with ``upsample``;
+           U-Net with ``upconv``; a DeepLab with instance and a U-Net with
+           layer norm) the f32 network on the card against the CPU on 2
+           tiles; a U-Net (schema_a) on a 3584x2048 photo and a
+           DeepLab/Xception (schema_b, grayscale) on the same photo in
+           grayscale, bf16 with the CRF on: stage times, MP/s, peak
+           memory, K1 launched 5 times per photo (the Xception's as
+           ``tiled<C=11,G=1,R=3>``), canvas rows summing to 1, the class
+           map against the plain-CRF run; MobileNetV2, DRN-D-54 and
+           ResUNet on a 1024x1024 photo each, the same checks; 5 train
+           steps on one fixed batch of 8 for the U-Net and for
+           DeepLab/Xception on schema_b: finite, the loss falls, K2a and
+           K2b once per step on the kernels the layout names, ms per step,
+           peak memory; the U-Net's best model written by
+           ``checkpoint.Checkpoint``, loaded by ``tester.load_model`` and
+           segmenting a 1024x1024 photo.
 
 A hand-written kernel's time (``ms``) is the mean over one CUDA graph of
 50 of its wrapper's launches (``graph_ms``): the card's time, whatever the
@@ -79,13 +103,18 @@ SLICE_HW = (2048, 3584)        # bench.py's 3872x2592 photo, fitted
 CLI_PHOTO_HW = (2592, 3872)
 K1_SHAPES = [                  # (C, G, H, W, r)
     (9, 3, 1024, 1792, 3),     # the slice: schema_a on the 2x-pooled grid
-    (9, 3, 37, 70, 3),         # ragged (W not a multiple of 4), tiled kernel
+    (11, 1, 1024, 1792, 3),    # schema_b beside a grayscale photo
+    # ragged (W not a multiple of 4, H not of 8), one per tiled kernel
+    (9, 3, 37, 70, 3),
+    (11, 3, 37, 70, 3),
+    (9, 1, 45, 53, 3),
+    (11, 1, 29, 66, 3),
     (11, 3, 37, 70, 2),        # ragged, schema_b's classes, generic kernel
 ]
 K1_ATOL = 1e-5                 # f32, no fast math; measured ~2e-7
 CRF_AGREEMENT = 0.999          # class maps, kernel CRF vs plain CRF
 N_PHOTOS = 3                   # timed runs of the slice after one warm-up
-MANY_PHOTOS = 8                # the archive path's photos, at SLICE_HW
+MANY_PHOTOS = 4                # the archive path's photos, at SLICE_HW
 K2_SHAPES = [   # (B, C, H, W, channels_last, weighted, targets outside)
     (8, 9, 512, 512, True, False, False),   # the training slice
     (8, 9, 512, 512, True, True, False),
@@ -94,7 +123,17 @@ K2_SHAPES = [   # (B, C, H, W, channels_last, weighted, targets outside)
     (3, 9, 61, 53, True, True, True),
     (1, 11, 37, 29, False, True, True),     # ragged, contiguous NCHW
     (2, 6, 45, 37, True, True, True),       # ragged, a run-time class count
+    (8, 11, 512, 512, True, True, False),   # schema_b's train step
+    (3, 11, 61, 53, True, True, True),      # ragged, targets 255 and 11
+    # the U-Net's train step: 104,976 pixels per image, 410 chunks of 256
+    # and one of 16
+    (8, 9, 324, 324, True, False, False),
 ]
+# the compile-time instantiations that [k1] and [k2] must have launched
+K2_CLASS_COUNTS = (9, 11)
+K2A_MUST_RUN = {f"direct<C={C}>" for C in K2_CLASS_COUNTS}
+K2B_MUST_RUN = {f"{kind}<C={C}>" for C in K2_CLASS_COUNTS
+                for kind in ("staged", "direct")}
 # f32, no fast math.  Both sides sum millions of terms in different
 # orders (the kernel: per-block tree then a double-precision pass; torch:
 # its own reduction tree), hence relative limits.
@@ -111,6 +150,9 @@ TRAIN_TILES = 40               # in-memory DB, 512 px
 TRAIN_EPOCHS = 2
 FIXED_STEPS = 10               # timed steps on one fixed batch
 TRAIN_PHOTO_HW = (1024, 1024)  # segmented by the trained model
+RESIDUAL_GAIN = 0.03           # see phase_zoo's network checks
+ZOO_STEPS = 5                  # train steps on one fixed batch, per model
+ZOO_PHOTO_HW = (1024, 1024)    # MobileNetV2, DRN-D-54 and ResUNet
 
 
 def log(msg: str) -> None:
@@ -253,12 +295,13 @@ def phase_build():
 
 def phase_k1(device):
     """K1 against crf_iteration_reference on the card.  Returns the worst
-    error and the slice shape's numbers."""
+    error, the slice shape's numbers and every shape's (the kernel that
+    ran, its error, times and bound)."""
     from pylc_tpu_torch.ops.kernels.crf_kernel import (
-        crf_iteration, crf_iteration_generic, crf_iteration_reference,
-        variant)
+        TILED_SIZES, crf_iteration, crf_iteration_generic,
+        crf_iteration_reference, variant)
     sig = (3.0, 13.0, 1.5, 3.0, 1.0, 1e-8)
-    worst, at_slice = 0.0, None
+    worst, at_slice, checked = 0.0, None, []
     for C, G, H, W, r in K1_SHAPES:
         rng = np.random.default_rng(C * 1000 + H)
         q = rng.random((C, H, W)).astype(np.float32)
@@ -290,15 +333,22 @@ def phase_k1(device):
                 raise AssertionError(f"{what} disagrees with its plain "
                                      f"version: {e} > {K1_ATOL}")
         worst = max(worst, err)
+        numbers = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "variant": name,
+                   "generic_ms": generic_ms, "host_loop_ms": host_ms}
+        checked.append(dict(numbers, shape=[C, G, H, W, r], max_abs_err=err,
+                            share_of_bound=bound_ms / ms))
         if at_slice is None:
-            at_slice = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "variant": name,
-                        "generic_ms": generic_ms,
-                        "host_loop_ms": host_ms}
+            at_slice = numbers
     if not at_slice["variant"].startswith("tiled"):
         raise AssertionError(f"the slice's shape ran {at_slice['variant']}, "
                              "not a tiled instantiation")
-    return worst, at_slice
+    missing = {variant(*size) for size in TILED_SIZES} \
+        - {c["variant"] for c in checked}
+    if missing:
+        raise AssertionError(f"tiled instantiations of K1 that no shape "
+                             f"launched: {sorted(missing)}")
+    return worst, at_slice, checked
 
 
 def phase_k2(device):
@@ -312,6 +362,7 @@ def phase_k2(device):
         fused_loss_backward_direct, fused_loss_forward, losses_from_acc)
     from pylc_tpu_torch.ops.losses import LossWeights
     worst_loss, worst_dx, at_slice = 0.0, 0.0, None
+    checked = {"fwd": [], "bwd": []}
     for B, C, H, W, cl, weighted, outside in K2_SHAPES:
         rng = np.random.default_rng(B * 100 + C)
         x = torch.from_numpy(
@@ -412,24 +463,52 @@ def phase_k2(device):
                                      f"{dx_scale}")
         worst_loss, worst_dx = max(worst_loss, loss_err), max(worst_dx,
                                                               dx_err)
+        numbers = {
+            "fwd": {"ms": fwd_ms, "plain_ms": fwd_plain,
+                    "bound_ms": fwd_bound, "bound_by": fwd_by,
+                    "variant": fwd_name, "host_loop_ms": fwd_host},
+            "bwd": {"ms": bwd_ms, "plain_ms": bwd_plain,
+                    "bound_ms": bwd_bound, "bound_by": bwd_by,
+                    "variant": name, "host_loop_ms": bwd_host,
+                    "direct_ms": direct_ms}}
+        shape = [B, C, H, W, layout]
+        checked["fwd"].append(dict(
+            numbers["fwd"], shape=shape, max_abs_err=loss_err,
+            share_of_bound=fwd_bound / fwd_ms))
+        checked["bwd"].append(dict(
+            numbers["bwd"], shape=shape, max_abs_err=dx_err,
+            share_of_bound=bwd_bound / bwd_ms))
+        # the direct kernel of this class count, run beside whatever the
+        # layout gets and held to the same limit
+        checked["bwd"].append({
+            "variant": fl.VARIANTS[min(1, fl.backward_variant_code(x))
+                                   ].format(C=C),
+            "shape": shape, "max_abs_err": direct_err, "ms": direct_ms,
+            "bound_ms": bwd_bound, "bound_by": bwd_by,
+            "share_of_bound": bwd_bound / direct_ms})
         if at_slice is None:
-            at_slice = {
-                "fwd": {"ms": fwd_ms, "plain_ms": fwd_plain,
-                        "bound_ms": fwd_bound, "bound_by": fwd_by,
-                        "variant": fwd_name, "host_loop_ms": fwd_host},
-                "bwd": {"ms": bwd_ms, "plain_ms": bwd_plain,
-                        "bound_ms": bwd_bound, "bound_by": bwd_by,
-                        "variant": name, "host_loop_ms": bwd_host,
-                        "direct_ms": direct_ms}}
+            at_slice = numbers
     ran = (at_slice["fwd"]["variant"], at_slice["bwd"]["variant"])
     if ran != ("direct<C=9>", "staged<C=9>"):
         raise AssertionError(f"the train step's layout ran K2a {ran[0]} and "
                              f"K2b {ran[1]}, not the compile-time class "
                              "count and the staged kernel")
-    return worst_loss, worst_dx, at_slice
+    for what, must, key in (("K2a", K2A_MUST_RUN, "fwd"),
+                            ("K2b", K2B_MUST_RUN, "bwd")):
+        missing = must - {c["variant"] for c in checked[key]}
+        if missing:
+            raise AssertionError(f"compile-time instantiations of {what} "
+                                 f"that no shape launched: {sorted(missing)}")
+    for B, C, H, W, cl, _, _ in K2_SHAPES[-3:]:
+        got = [c["variant"] for c in checked["bwd"]
+               if c["shape"][:4] == [B, C, H, W] and "plain_ms" in c]
+        if got != [f"staged<C={C}>"]:
+            raise AssertionError(f"K2b at [{B},{C},{H},{W}] channels_last "
+                                 f"ran {got}, not staged<C={C}>")
+    return worst_loss, worst_dx, at_slice, checked
 
 
-def phase_network_check(model, cfg, device):
+def phase_network_check(model, cfg, device, tag="[net]"):
     """The network on the card in true f32 against the same network on
     the CPU, on two tiles: the tolerance of tests/test_golden_parity.py."""
     import copy
@@ -437,16 +516,20 @@ def phase_network_check(model, cfg, device):
     from pylc_tpu_torch.train_state import make_predict
     f32 = cfg.replace(compute_dtype="float32")
     tiles = np.random.default_rng(7).integers(
-        0, 255, (2, cfg.tile_size, cfg.tile_size, 3), dtype=np.uint8)
+        0, 255, (2, cfg.tile_size, cfg.tile_size, cfg.ch), dtype=np.uint8)
+    t0 = time.perf_counter()
     want = make_predict(f32, copy.deepcopy(model).cpu())(
         torch.from_numpy(tiles)).numpy()
+    cpu_s = time.perf_counter() - t0
     got = make_predict(f32, model)(torch.from_numpy(tiles).to(device))
     got = got.cpu().numpy()
     scale = float(np.abs(want).max())
     err = float(np.abs(got - want).max())
     agree = float(np.mean(got.argmax(-1) == want.argmax(-1)))
-    log(f"[net] f32 card vs CPU on 2 tiles: max_abs_err {err:.3e} at logit "
-        f"scale {scale:.3e}; argmax agreement {agree:.5f}")
+    log(f"{tag} f32 card vs CPU on 2 tiles of {cfg.tile_size} px (logits "
+        f"{got.shape[1]} px; the CPU took {cpu_s:.1f} s): max_abs_err "
+        f"{err:.3e} at logit scale {scale:.3e}; argmax agreement "
+        f"{agree:.5f}")
     np.testing.assert_allclose(got, want, rtol=1e-3,
                                atol=max(5e-4, 1e-5 * scale))
     if agree < 0.999:
@@ -455,11 +538,7 @@ def phase_network_check(model, cfg, device):
 
 def phase_slice(device, workdir, cfg_base=None, hw=SLICE_HW):
     """The main path: .pth round trip, Segmenter with the CRF on."""
-    from pylc_tpu_torch import native
     from pylc_tpu_torch.config import Config
-    from pylc_tpu_torch.infer import Segmenter
-    from pylc_tpu_torch.ops.crf import make_crf
-    from pylc_tpu_torch.ops.kernels.crf_kernel import crf_iteration
     from pylc_tpu_torch.tester import load_model
     from pylc_tpu_torch.train_state import init_model
 
@@ -470,23 +549,43 @@ def phase_slice(device, workdir, cfg_base=None, hw=SLICE_HW):
     del model
     cfg, model, _ = load_model(pth, cfg, device)
     phase_network_check(model, cfg, device)
+    photo = np.random.default_rng(0).integers(0, 255, (*hw, 3),
+                                              dtype=np.uint8)
+    launches, seg, _ = drive_photo("[slice]", cfg, model, device, photo,
+                                   N_PHOTOS)
+    return launches, pth, seg
+
+
+def drive_photo(tag, cfg, model, device, photo, n_timed):
+    """``Segmenter.segment_array_staged`` with the CRF on, on one photo:
+    a warm-up and ``n_timed`` timed runs with K1's count set to 0 just
+    before them all, then the same photo with the plain CRF.  Checks the
+    class map, the canvas and K1's launches; returns (K1 launches, the
+    Segmenter, median seconds)."""
+    from pylc_tpu_torch import native
+    from pylc_tpu_torch.infer import Segmenter
+    from pylc_tpu_torch.ops.crf import make_crf
+    from pylc_tpu_torch.ops.kernels.crf_kernel import crf_iteration, variant
     from pylc_tpu_torch.train_state import make_predict
     predict = make_predict(cfg, model)  # compute_dtype bf16: autocast
     crf = make_crf(cfg)
     seg = Segmenter(cfg, predict, device, batch_size=16, crf=crf)
-    photo = np.random.default_rng(0).integers(0, 255, (*hw, 3),
-                                              dtype=np.uint8)
+    hw = photo.shape[:2]
     n_classes = cfg.n_classes
+    k1 = variant(n_classes, photo.shape[2] if photo.ndim == 3 else 1,
+                 crf.params.radius)
 
     torch.cuda.reset_peak_memory_stats(device)
     crf_iteration.launches = 0
-    runs = [seg.segment_array_staged(photo) for _ in range(1 + N_PHOTOS)]
+    runs = [seg.segment_array_staged(photo) for _ in range(1 + n_timed)]
     launches = crf_iteration.launches
     expect = len(runs) * crf.params.n_iters
-    log(f"[slice] K1 launches {launches} over {len(runs)} photos "
+    log(f"{tag} K1 {k1} launches {launches} over {len(runs)} photos "
         f"(expected {expect} = photos x crf_iters)")
     if launches != expect:
         raise AssertionError(f"K1 launched {launches} times, not {expect}")
+    if not k1.startswith("tiled"):
+        raise AssertionError(f"the CRF of {tag} ran K1's {k1} kernel")
     peak = torch.cuda.max_memory_allocated(device)
 
     res = runs[-1]
@@ -502,12 +601,14 @@ def phase_slice(device, workdir, cfg_base=None, hw=SLICE_HW):
     mp = res["megapixels"]
     for i, r in enumerate(runs[1:]):
         st = " ".join(f"{k} {v * 1e3:.2f} ms" for k, v in r["stages"].items())
-        log(f"[slice] photo {i}: {r['seconds']:.4f} s, "
+        log(f"{tag} photo {i}: {r['seconds']:.4f} s, "
             f"{mp / r['seconds']:.3f} MP/s ({st})")
     secs = sorted(r["seconds"] for r in runs[1:])
     median = secs[len(secs) // 2]
     host = "C++ (csrc/host_lut.cpp)" if native.available() else "numpy"
-    log(f"[slice] {hw[1]}x{hw[0]} ({mp:.3f} MP), {cfg.n_classes} classes, "
+    log(f"{tag} {cfg.arch}"
+        f"{'/' + cfg.backbone if cfg.arch == 'deeplab' else ''} "
+        f"{hw[1]}x{hw[0]}x{cfg.ch} ({mp:.3f} MP), {cfg.n_classes} classes, "
         f"compute {cfg.compute_dtype}, host colourize {host}: median "
         f"{median:.4f} s = "
         f"{mp / median:.3f} MP/s; peak device memory "
@@ -520,14 +621,14 @@ def phase_slice(device, workdir, cfg_base=None, hw=SLICE_HW):
         raise AssertionError("the plain CRF run launched K1")
     agree = float(np.mean(plain_res["class_map"] == cm))
     diff = (plain_res["probs"] - canvas).abs().max().item()
-    log(f"[slice] plain-CRF rerun: crf stage "
+    log(f"{tag} plain-CRF rerun: crf stage "
         f"{plain_res['stages']['crf'] * 1e3:.2f} ms vs kernel "
         f"{res['stages']['crf'] * 1e3:.2f} ms; class-map agreement "
         f"{agree:.6f} (limit {CRF_AGREEMENT}); canvas max_abs_diff "
         f"{diff:.3e}")
     if agree < CRF_AGREEMENT:
         raise AssertionError(f"class maps agree on {agree} < {CRF_AGREEMENT}")
-    return launches, pth, seg
+    return launches, seg, median
 
 
 def phase_many(seg, device, hw=SLICE_HW):
@@ -718,6 +819,22 @@ def _profile_step(step, img, mask, gen, step_ms: float):
             f"x{e.count:<5d} {e.key[:100]}")
 
 
+def timed_steps(step, img, mask, gen, n: int):
+    """``n`` train steps on one batch, each between two CUDA events ->
+    (ms per step, total loss per step)."""
+    ms, totals = [], []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = step(img, mask, gen)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        totals.append(float(metrics["total"]))
+    return ms, totals
+
+
 def phase_train(device, workdir):
     """The training path: trainer.train at full width on an in-memory DB,
     the best model through tester.load_model, then FIXED_STEPS timed
@@ -792,16 +909,7 @@ def phase_train(device, workdir):
     img = torch.from_numpy(db["img"][:cfg.batch_size]).to(device)
     mask = torch.from_numpy(db["mask"][:cfg.batch_size]).to(device)
     gen = torch.Generator().manual_seed(13)
-    ms, totals = [], []
-    for _ in range(FIXED_STEPS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        metrics = step(img, mask, gen)
-        end.record()
-        torch.cuda.synchronize()
-        ms.append(start.elapsed_time(end))
-        totals.append(float(metrics["total"]))
+    ms, totals = timed_steps(step, img, mask, gen, FIXED_STEPS)
     step_ms = float(np.median(ms[1:]))
     first, last = np.mean(totals[:3]), np.mean(totals[-3:])
     log(f"[train] {FIXED_STEPS} steps on one fixed batch of "
@@ -816,6 +924,198 @@ def phase_train(device, workdir):
     return launches
 
 
+# [zoo]: (name, what differs from the default config)
+ZOO_MODELS = [
+    ("deeplab_xception", dict(backbone="xception")),
+    ("deeplab_mobilenet", dict(backbone="mobilenet")),
+    ("deeplab_drn", dict(backbone="drn")),
+    ("unet_upsample", dict(arch="unet")),
+    ("resunet_upsample", dict(arch="resunet")),
+    ("unet_upconv", dict(arch="unet", up_mode="upconv")),
+    ("deeplab_resnet_instance", dict(norm_type="instance")),
+    ("unet_layer", dict(arch="unet", norm_type="layer")),
+]
+
+
+# substrings of the names of cuDNN's, cuBLAS's and PyTorch's own
+# convolution and GEMM kernels, as torch.profiler reports them
+CONV_KERNEL_MARKS = ("xmma", "cutlass", "cudnn", "nvjet", "gemm", "conv",
+                     "fprop", "dgrad", "wgrad")
+
+
+def forward_times(tag, cfg, model, device):
+    """The forward ``make_predict`` gives the Segmenter (bf16 autocast),
+    on one batch of 16 tiles: ms per batch by CUDA events, and under
+    ``torch.profiler`` the launches and the device time, in all and in
+    convolutions and GEMMs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pylc_tpu_torch.train_state import make_predict
+    predict = make_predict(cfg, model)
+    T = cfg.tile_size
+    tiles = torch.from_numpy(np.random.default_rng(8).integers(
+        0, 255, (16, T, T, cfg.ch), dtype=np.uint8)).to(device)
+    ms = cuda_ms(lambda: predict(tiles), 3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        predict(tiles)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    conv = sum(e.self_device_time_total for e in kernels
+               if any(m in e.key.lower() for m in CONV_KERNEL_MARKS)) / 1e3
+    top = "; ".join(f"{e.self_device_time_total / 1e3:.2f} ms x{e.count} "
+                    f"{e.key[:60]}" for e in kernels[:3])
+    log(f"{tag} {cfg.compute_dtype} forward of 16 tiles of {T} px: "
+        f"{ms:.2f} ms per batch; profiled: {sum(e.count for e in kernels)} "
+        f"launches, {busy:.2f} ms of device time, {conv:.2f} ms of it in "
+        f"convolutions and GEMMs (share {conv / busy:.3f}), idle share "
+        f"of the unprofiled batch {max(0.0, 1 - busy / ms):.3f}; top: {top}")
+
+
+def zoo_train_steps(name, cfg, model, device):
+    """ZOO_STEPS steps of ``make_train_step`` on one fixed batch of
+    structured tiles.  Returns (K2a launches, K2b launches, median ms,
+    the optimizer, the scheduler)."""
+    from pylc_tpu_torch.ops.kernels.fused_loss import (
+        backward_variant, forward_variant, fused_loss_backward,
+        fused_loss_forward)
+    from pylc_tpu_torch.train_state import (make_optimizer, make_train_step,
+                                            prepare_batch)
+    tag = f"[zoo] train {name}"
+    T, B = cfg.tile_size, cfg.batch_size
+    img, mask = structured_tiles(np.random.default_rng(31), B, T, cfg)
+    img, mask = (torch.from_numpy(a).to(device) for a in (img, mask))
+    model.to(device, memory_format=torch.channels_last)
+    opt, sched = make_optimizer(cfg, model, 1)
+    step = make_train_step(cfg, model, opt, sched)
+    gen = torch.Generator().manual_seed(32)
+    torch.cuda.reset_peak_memory_stats(device)
+    fused_loss_forward.launches = fused_loss_backward.launches = 0
+    ms, totals = timed_steps(step, img, mask, gen, ZOO_STEPS)
+    launches = (fused_loss_forward.launches, fused_loss_backward.launches)
+    peak = torch.cuda.max_memory_allocated(device)
+
+    # the kernels this model's logits get: a train-mode forward as the
+    # step runs it
+    x, _ = prepare_batch(cfg, img.permute(0, 2, 3, 1), mask)
+    with torch.no_grad(), torch.autocast(
+            "cuda", dtype=torch.bfloat16,
+            enabled=cfg.compute_dtype == "bfloat16"):
+        logits = model.train()(x.permute(0, 3, 1, 2))
+    C = cfg.n_classes
+    ran = (forward_variant(logits), backward_variant(logits))
+    step_ms = float(np.median(ms[1:]))
+    log(f"{tag}: {ZOO_STEPS} steps on one fixed batch of {B} x {T} px, "
+        f"{C} classes, logits {tuple(logits.shape)} "
+        f"{'channels_last' if logits.stride(1) == 1 else 'contiguous'}: ms "
+        f"{[round(v, 2) for v in ms]}, median after the first "
+        f"{step_ms:.3f} ms = {B * 1e3 / step_ms:.2f} tiles/s; total loss "
+        f"{[round(v, 4) for v in totals]}; K2a {ran[0]} launches "
+        f"{launches[0]}, K2b {ran[1]} launches {launches[1]} (expected "
+        f"{ZOO_STEPS} each); peak device memory {peak / 2 ** 30:.3f} GiB")
+    if launches != (ZOO_STEPS, ZOO_STEPS):
+        raise AssertionError(f"{tag}: K2 launches {launches}")
+    if ran != (f"direct<C={C}>", f"staged<C={C}>"):
+        raise AssertionError(f"{tag}: K2a ran {ran[0]} and K2b {ran[1]}")
+    if not np.isfinite(totals).all() or not totals[-1] < totals[0]:
+        raise AssertionError(f"{tag}: total loss did not fall: {totals}")
+    return launches[0], launches[1], step_ms, opt, sched
+
+
+def phase_zoo(device, workdir):
+    """The models beside DeepLab/ResNet101, at full width and depth."""
+    from pylc_tpu_torch.checkpoint import Checkpoint
+    from pylc_tpu_torch.config import Config
+    from pylc_tpu_torch.infer import Segmenter
+    from pylc_tpu_torch.tester import load_model
+    from pylc_tpu_torch.train_state import init_model
+
+    for name, kw in ZOO_MODELS:
+        cfg = Config().replace(**kw)
+        model = init_model(cfg, seed=1)
+        tag = f"[zoo] net {name}:"
+        if cfg.arch == "deeplab" and cfg.norm_type != "batch":
+            # a normalizer that takes its statistics from the input, at a
+            # gain of 1 in all 33 residual branches: rounding grows so much
+            # layer by layer that f32 does not fix the logits (the CPU in
+            # f32 against itself in f64: 7e-4 of the logit scale at 256 px,
+            # 2e-6 at this gain)
+            with torch.no_grad():
+                for key, p in model.named_parameters():
+                    if key.endswith("bn3.weight"):
+                        p.mul_(RESIDUAL_GAIN)
+            tag += f" (every bottleneck's last norm scaled by {RESIDUAL_GAIN})"
+        phase_network_check(model.to(device), cfg, device, tag)
+        forward_times(f"[zoo] net {name}:", cfg, model, device)
+        del model
+    torch.cuda.empty_cache()
+
+    counts = {}
+    rng = np.random.default_rng(41)
+    photo = rng.integers(0, 255, (*SLICE_HW, 3), dtype=np.uint8)
+    small = rng.integers(0, 255, (*ZOO_PHOTO_HW, 3), dtype=np.uint8)
+    gray = np.ascontiguousarray(photo[..., :1])
+
+    # the two full-size photos
+    unet_cfg = Config().replace(arch="unet")
+    unet = init_model(unet_cfg, seed=2).to(device)
+    counts["zoo_unet_photo"], _, _ = drive_photo(
+        "[zoo] photo unet:", unet_cfg, unet, device, photo, N_PHOTOS)
+    xcp_cfg = Config().replace(backbone="xception", schema="schema_b", ch=1)
+    xcp = init_model(xcp_cfg, seed=3).to(device)
+    counts["zoo_xception_photo"], _, _ = drive_photo(
+        "[zoo] photo deeplab/xception schema_b gray:", xcp_cfg, xcp, device,
+        gray, N_PHOTOS)
+    del xcp
+    for name, kw in (("deeplab/mobilenet", dict(backbone="mobilenet")),
+                     ("deeplab/drn", dict(backbone="drn")),
+                     ("resunet", dict(arch="resunet"))):
+        cfg = Config().replace(**kw)
+        model = init_model(cfg, seed=4).to(device)
+        counts[f"zoo_{name.split('/')[-1]}_photo"], _, _ = drive_photo(
+            f"[zoo] photo {name}:", cfg, model, device, small, N_PHOTOS)
+        del model
+    torch.cuda.empty_cache()
+
+    # the two train-step runs
+    k2a, k2b, _, opt, sched = zoo_train_steps("unet schema_a", unet_cfg,
+                                              unet, device)
+    counts["zoo_unet_train"] = (k2a, k2b)
+    xcp_cfg = Config().replace(backbone="xception", schema="schema_b")
+    xcp = init_model(xcp_cfg, seed=5)
+    counts["zoo_xception_train"] = zoo_train_steps(
+        "deeplab/xception schema_b", xcp_cfg, xcp, device)[:2]
+    del xcp
+
+    # the trained U-Net as the trainer's best model, back through the
+    # tester's loader
+    unet_cfg.id = unet_cfg.gen_model_id()
+    ckpt = Checkpoint(unet_cfg.id, os.path.join(workdir, "save"))
+    ckpt.save(unet, opt, sched, unet_cfg, epoch=1, iteration=ZOO_STEPS,
+              is_best=True)
+    lcfg, loaded, predict = load_model(ckpt.model_file, unet_cfg, device)
+    for (k, a), b in zip(unet.state_dict().items(),
+                         loaded.state_dict().values()):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{k} changed through {ckpt.model_file}")
+    res = Segmenter(lcfg, predict, device, batch_size=16).segment_array(small)
+    cm = res["class_map"]
+    if cm.shape != ZOO_PHOTO_HW or int(cm.max()) >= lcfg.n_classes:
+        raise AssertionError(f"the U-Net's class map {cm.shape}")
+    log(f"[zoo] {os.path.basename(ckpt.model_file)} "
+        f"({os.path.getsize(ckpt.model_file) / 2 ** 20:.1f} MiB, keys "
+        f"enc0.conv0.weight ... head.bias) written by checkpoint.Checkpoint, "
+        f"loaded through tester.load_model and segmented a "
+        f"{ZOO_PHOTO_HW[1]}x{ZOO_PHOTO_HW[0]} photo: classes "
+        f"{np.unique(cm).tolist()}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -828,19 +1128,34 @@ def main() -> int:
         f"{torch.cuda.device_count()}; torch {torch.__version__} CUDA "
         f"{torch.version.cuda}; python {sys.version.split()[0]}")
     phase_build()
-    k1_err, k1 = phase_k1(device)
-    loss_err, dx_err, k2 = phase_k2(device)
+    k1_err, k1, k1_checked = phase_k1(device)
+    loss_err, dx_err, k2, k2_checked = phase_k2(device)
     build_root = os.path.join(REPO, "pylc_tpu_torch", "_build")
     os.makedirs(build_root, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_root) as workdir:
         launches, pth, seg = phase_slice(device, workdir)
-        phase_many(seg, device)
+        many_launches = phase_many(seg, device)
         del seg
         phase_cli(pth, workdir)
     with tempfile.TemporaryDirectory(dir=build_root) as workdir:
         k2a_launches, k2b_launches = phase_train(device, workdir)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=build_root) as workdir:
+        zoo = phase_zoo(device, workdir)
+    # each path's launches: the count set to 0 just before it, read just
+    # after; "launches" is the first path's
+    k1_paths = {"slice": launches, "many": many_launches,
+                **{k: v for k, v in zoo.items() if k.endswith("_photo")}}
+    k2_paths = [{"train": n, **{k: v[i] for k, v in zoo.items()
+                                if k.endswith("_train")}}
+                for i, n in enumerate((k2a_launches, k2b_launches))]
+    for paths in (k1_paths, *k2_paths):
+        idle = [k for k, v in paths.items() if v < 1]
+        if idle:
+            raise AssertionError(f"paths that launched no kernel: {idle}")
 
-    def entry(name, source, replaces, n_launches, per_unit, err, m):
+    def entry(name, source, replaces, paths, per_unit, err, m, checked):
+        n_launches = next(iter(paths.values()))
         # no single PyTorch call computes any of the three functions (K1 is
         # a per-pixel bilateral window, K2a/K2b fuse three losses), so
         # there is no library yardstick
@@ -851,7 +1166,8 @@ def main() -> int:
                "library_ms": None,
                "share_of_bound": m["bound_ms"] / m["ms"],
                "host_loop_ms": m["host_loop_ms"],
-               "launches_per_unit": per_unit, "variant": m["variant"]}
+               "launches_per_unit": per_unit, "variant": m["variant"],
+               "launches_by_path": paths, "variants": checked}
         if "direct_ms" in m:
             out["direct_ms"] = m["direct_ms"]
         return out
@@ -859,14 +1175,14 @@ def main() -> int:
     loss_src = "pylc_tpu_torch/csrc/fused_loss.cu"
     print(json.dumps({"kernels": [
         entry("crf_iteration", "pylc_tpu_torch/csrc/crf_iteration.cu",
-              "pylc_tpu/ops/pallas/crf_kernel.py:120", launches,
-              "5 per photo", k1_err, k1),
+              "pylc_tpu/ops/pallas/crf_kernel.py:120", k1_paths,
+              "5 per photo", k1_err, k1, k1_checked),
         entry("fused_loss_forward", loss_src,
-              "pylc_tpu/ops/pallas/fused_loss.py:131", k2a_launches,
-              "1 per train step", loss_err, k2["fwd"]),
+              "pylc_tpu/ops/pallas/fused_loss.py:131", k2_paths[0],
+              "1 per train step", loss_err, k2["fwd"], k2_checked["fwd"]),
         entry("fused_loss_backward", loss_src,
-              "pylc_tpu/ops/pallas/fused_loss.py:307", k2b_launches,
-              "1 per train step", dx_err, k2["bwd"]),
+              "pylc_tpu/ops/pallas/fused_loss.py:307", k2_paths[1],
+              "1 per train step", dx_err, k2["bwd"], k2_checked["bwd"]),
     ]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,12 @@ with the same ``losses.json``.  ``Checkpoint`` keeps the atomic writes
   - ``checkpoint.pth``: {epoch, iter, model, optimizer, scheduler, meta},
     written at every validation, for ``--resume``;
   - ``<model_id>.pth``: {'model': state_dict, 'meta': cfg.to_meta()}, the
-    best model by validation Dice, in the reference schema that both the
-    port's and the JAX package's ``.pth`` loaders read.
+    best model by validation Dice.  For a DeepLab on ResNet101 or Xception
+    this is the reference schema, which both the port's and the JAX
+    package's ``.pth`` loaders read; the reference has no schema for the
+    other models, whose file has the same ``meta`` and the port's own key
+    names (``convert.module_map``), and loads through
+    ``convert.load_pth_model`` with the config the model was built from.
 """
 
 from __future__ import annotations

@@ -1,28 +1,43 @@
-"""Weights across the two packages, and reference ``.pth`` loading.
+"""Weights across the two packages: ``.pth`` loading, the ImageNet
+encoders, and the JAX package's ``.ckpt``.
 
-Port of the DeepLab parts of ``pylc_tpu/convert.py``.  The port's module
-names are the reference checkpoints' own, so a reference-schema ``.pth``
-({'model': state_dict, 'meta': ...}) loads with ``strict=True``;
+Port of ``pylc_tpu/convert.py``.  The port's DeepLab module names are the
+reference checkpoints' own, so a reference-schema ``.pth`` ({'model':
+state_dict, 'meta': ...}) loads with ``strict=True``;
 ``load_reference_pth`` unpickles one whose ``meta`` is the reference's
-``config.Parameters``; ``state_dict_from_jax`` is the JAX package's
-exporter (``export_deeplab_pth``) without the file;
-``load_resnet101_imagenet`` puts a torchvision-format ImageNet ResNet101
-into a DeepLab's backbone.
+``config.Parameters``.
+
+``module_map(cfg)`` is the table between the two packages' weights: for
+every module with parameters, the port's state_dict prefix and the path of
+the flax module in the JAX package's ``params`` / ``batch_stats`` trees.
+``state_dict_from_jax`` and ``jax_trees_from_state_dict`` walk it in the
+two directions (HWIO kernels <-> OIHW, a transposed conv's also mirrored;
+scale/bias/mean/var <-> weight/bias/running_mean/running_var).  For the
+two backbones the reference builds (ResNet101, Xception) the first equals
+the JAX package's exporter (``export_deeplab_pth``) without the file.
+
+``load_ckpt_model`` and ``save_ckpt_model`` read and write the JAX
+package's best-model file: flax's msgpack of {params, batch_stats} beside
+a ``.meta`` JSON.  ``load_*_imagenet`` put an ImageNet encoder into a
+DeepLab's backbone.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import re
 import sys
 import types
 from collections import OrderedDict
-from functools import partial
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 
 from pylc_tpu_torch.config import Config
+from pylc_tpu_torch.models.mobilenet import SETTINGS as MOBILENET_SETTINGS
 from pylc_tpu_torch.models.registry import build_model
 
 
@@ -53,72 +68,289 @@ def load_reference_pth(path: str) -> Dict[str, Any]:
             del sys.modules["config"]
 
 
-def _put_conv(sd: Dict, key: str, p: Mapping):
-    sd[key + ".weight"] = torch.tensor(
-        np.asarray(p["kernel"]).transpose(3, 2, 0, 1))  # HWIO -> OIHW
+# --------------------------------------------------------------------- #
+# the table: port state_dict prefix <-> flax module path
+# --------------------------------------------------------------------- #
+
+ModuleMap = List[Tuple[str, Tuple[str, ...]]]
+
+# flax's automatic names of the normalizer in a U-Net block, by norm_type
+FLAX_NORM_NAMES = {"batch": "BatchNorm", "syncbatch": "BatchNorm",
+                   "instance": "GroupNorm", "layer": "LayerNorm"}
 
 
-def _put_bn(sd: Dict, key: str, p: Mapping, s: Mapping):
-    sd[key + ".weight"] = torch.tensor(np.asarray(p["scale"]))
-    sd[key + ".bias"] = torch.tensor(np.asarray(p["bias"]))
-    sd[key + ".running_mean"] = torch.tensor(np.asarray(s["mean"]))
-    sd[key + ".running_var"] = torch.tensor(np.asarray(s["var"]))
+def _bottleneck_modules(t: str, j: Tuple[str, ...], downsample: bool
+                        ) -> ModuleMap:
+    mods = [(f"{t}.{m}", j + (m,))
+            for m in ("conv1", "bn1", "conv2", "bn2", "conv3", "bn3")]
+    if downsample:
+        mods += [(f"{t}.downsample.0", j + ("downsample_conv",)),
+                 (f"{t}.downsample.1", j + ("downsample_bn",))]
+    return mods
+
+
+def resnet_modules(layers: Sequence[int] = (3, 4, 23, 3)) -> ModuleMap:
+    """ResNet101: ``layer{L}.{i}`` <-> ``layer{L}_{i}``, in the exporter's
+    order (by the flax name, as text).  ``layers``: the block counts of
+    layer1-3; layer4 is the multi-grid unit of 3."""
+    mods: ModuleMap = [("conv1", ("conv1",)), ("bn1", ("bn1",))]
+    counts = (*layers[:3], 3)
+    for name in sorted(f"layer{L + 1}_{i}" for L, n in enumerate(counts)
+                       for i in range(n)):
+        L, i = name.replace("layer", "").split("_")
+        mods += _bottleneck_modules(f"layer{L}.{i}", (name,), i == "0")
+    return mods
+
+
+def _separable_modules(t: str, j: Tuple[str, ...]) -> ModuleMap:
+    return [(f"{t}.conv1", j + ("depthwise",)), (f"{t}.bn", j + ("bn",)),
+            (f"{t}.pointwise", j + ("pointwise",))]
+
+
+def xception_modules() -> ModuleMap:
+    """Aligned Xception: separable j of a block sits at ``rep.{3j}`` in
+    blocks 1-2 (no leading ReLU) and at ``rep.{3j + 1}`` in blocks 3-20,
+    its norm one index later; the middle blocks 4-19 have no skip conv."""
+    mods: ModuleMap = [("conv1", ("conv1",)), ("bn1", ("bn1",)),
+                       ("conv2", ("conv2",)), ("bn2", ("bn2",))]
+    for n in range(1, 21):
+        base = 0 if n <= 2 else 1
+        for j in range(3):
+            i = 3 * j + base
+            mods += _separable_modules(f"block{n}.rep.{i}",
+                                       (f"block{n}", f"sep{j}"))
+            mods.append((f"block{n}.rep.{i + 1}", (f"block{n}", f"sepbn{j}")))
+        if not 4 <= n <= 19:
+            mods += [(f"block{n}.skip", (f"block{n}", "skip")),
+                     (f"block{n}.skipbn", (f"block{n}", "skipbn"))]
+    for i in (3, 4, 5):
+        mods += _separable_modules(f"conv{i}", (f"conv{i}",))
+        mods.append((f"bn{i}", (f"bn{i}",)))
+    return mods
+
+
+def mobilenet_modules() -> ModuleMap:
+    """MobileNetV2: ``features.{i}.conv.{k}`` <-> ``block{i}``'s named
+    layers; an expand-1 block is [dw, bn, relu6, pw, bn], the others
+    [pw, bn, relu6, dw, bn, relu6, pw, bn]."""
+    mods: ModuleMap = [("features.0.0", ("stem_conv",)),
+                       ("features.0.1", ("stem_bn",))]
+    i = 1
+    for t, _, n, _ in MOBILENET_SETTINGS:
+        names = ("dw_conv", "dw_bn", None, "project_conv", "project_bn")
+        if t != 1:
+            names = ("expand_conv", "expand_bn", None) + names
+        for _ in range(n):
+            mods += [(f"features.{i}.conv.{k}", (f"block{i}", name))
+                     for k, name in enumerate(names) if name]
+            i += 1
+    return mods
+
+
+def drn_modules() -> ModuleMap:
+    """DRN-D-54: ``layer0.0/.1``; conv stages ``layer{L}.0/.1`` <->
+    ``layer{L}/conv0, bn0``; bottleneck stages as the ResNet's."""
+    mods: ModuleMap = [("layer0.0", ("layer0_conv",)),
+                       ("layer0.1", ("layer0_bn",))]
+    for L in (1, 2, 7, 8):
+        mods += [(f"layer{L}.0", (f"layer{L}", "conv0")),
+                 (f"layer{L}.1", (f"layer{L}", "bn0"))]
+    for L, n in ((3, 3), (4, 4), (5, 6), (6, 3)):
+        for i in range(n):
+            mods += _bottleneck_modules(f"layer{L}.{i}", (f"layer{L}_{i}",),
+                                        i == 0)
+    return mods
+
+
+BACKBONE_MODULES = {"resnet": resnet_modules, "xception": xception_modules,
+                    "mobilenet": mobilenet_modules, "drn": drn_modules}
+
+DEEPLAB_HEAD_MODULES: ModuleMap = [
+    *[(f"aspp.aspp{i}.{t}", ("aspp", f"aspp{i}", j))
+      for i in (1, 2, 3, 4) for t, j in (("atrous_conv", "conv"),
+                                         ("bn", "bn"))],
+    ("aspp.global_avg_pool.1", ("aspp", "gap_conv")),
+    ("aspp.global_avg_pool.2", ("aspp", "gap_bn")),
+    ("aspp.conv1", ("aspp", "proj")),
+    ("aspp.bn1", ("aspp", "proj_bn")),
+    ("decoder.conv1", ("decoder", "ll_conv")),
+    ("decoder.bn1", ("decoder", "ll_bn")),
+    ("decoder.last_conv.0", ("decoder", "conv1")),
+    ("decoder.last_conv.1", ("decoder", "bn1")),
+    ("decoder.last_conv.4", ("decoder", "conv2")),
+    ("decoder.last_conv.5", ("decoder", "bn2")),
+    ("decoder.last_conv.8", ("decoder", "head")),
+]
+
+
+def unet_modules(cfg: Config) -> ModuleMap:
+    """U-Net and ResUNet: the port's names (``models/unet.py``) <-> flax's
+    automatic ones (``Conv_{k}``, ``BatchNorm_{k}`` / ``GroupNorm_{k}`` /
+    ``LayerNorm_{k}`` by ``norm_type``, ``ConvTranspose_0`` or ``Conv_0``
+    for the decoder's ``up``, ``UNetConvBlock_0`` / ``UNetResBlock_0``)."""
+    norm = FLAX_NORM_NAMES[cfg.norm_type]
+    res = cfg.arch == "resunet"
+
+    def block(t: str, j: Tuple[str, ...], inplanes: int, features: int):
+        mods = []
+        for k in (0, 1):
+            mods += [(f"{t}.conv{k}", j + (f"Conv_{k}",)),
+                     (f"{t}.norm{k}", j + (f"{norm}_{k}",))]
+        if res and inplanes != features:
+            mods.append((f"{t}.shortcut_proj", j + ("shortcut_proj",)))
+        return mods
+
+    mods: ModuleMap = []
+    prev = cfg.ch
+    for i in range(cfg.unet_depth):
+        mods += block(f"enc{i}", (f"enc{i}",), prev, 2 ** (cfg.unet_wf + i))
+        prev = 2 ** (cfg.unet_wf + i)
+    up = "ConvTranspose_0" if cfg.up_mode == "upconv" else "Conv_0"
+    inner = "UNetResBlock_0" if res else "UNetConvBlock_0"
+    for i, j in enumerate(reversed(range(cfg.unet_depth - 1))):
+        features = 2 ** (cfg.unet_wf + j)
+        mods.append((f"dec{i}.up", (f"dec{i}", up)))
+        mods += block(f"dec{i}.block", (f"dec{i}", inner), 2 * features,
+                      features)
+    mods.append(("head", ("head",)))
+    return mods
+
+
+def module_map(cfg: Config) -> ModuleMap:
+    """[(the port's state_dict prefix, the flax module's path)] for every
+    module with parameters of the model ``cfg`` configures."""
+    if cfg.arch in ("unet", "resunet"):
+        return unet_modules(cfg)
+    if cfg.arch != "deeplab":
+        raise ValueError(f"Model '{cfg.arch}' not available. "
+                         f"Options: {cfg.arch_options}")
+    if cfg.backbone not in BACKBONE_MODULES:
+        raise ValueError(f"Unknown backbone '{cfg.backbone}'")
+    return [("backbone." + t, ("backbone",) + j)
+            for t, j in BACKBONE_MODULES[cfg.backbone]()] \
+        + DEEPLAB_HEAD_MODULES
+
+
+def _at(tree: Mapping, path: Tuple[str, ...]) -> Mapping:
+    """The subtree at ``path``, or {} (a model without BatchNorm has no
+    ``batch_stats``)."""
+    for name in path:
+        tree = tree.get(name, {}) if isinstance(tree, Mapping) else {}
+    return tree
+
+
+def _is_transposed(path: Tuple[str, ...]) -> bool:
+    return path[-1].startswith("ConvTranspose")
+
+
+def _tensor(a) -> torch.Tensor:
+    return torch.tensor(np.asarray(a))
+
+
+def _state_dict(mods: ModuleMap, params: Mapping, stats: Mapping
+                ) -> "OrderedDict[str, torch.Tensor]":
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    for t, j in mods:
+        p = _at(params, j)
+        if not p:
+            raise KeyError(f"no parameters at {'/'.join(j)} (for {t})")
+        if "kernel" in p:
+            k = np.asarray(p["kernel"])
+            if _is_transposed(j):
+                # flax's ConvTranspose does not flip its kernel
+                # (transpose_kernel=False); torch's ConvTranspose2d is a
+                # convolution's gradient and does: HWIO -> [I, O, H, W]
+                # with both spatial axes mirrored
+                k = np.ascontiguousarray(k[::-1, ::-1].transpose(2, 3, 0, 1))
+            else:
+                k = k.transpose(3, 2, 0, 1)  # HWIO -> OIHW, depthwise too
+            sd[t + ".weight"] = _tensor(k)
+            if "bias" in p:
+                sd[t + ".bias"] = _tensor(p["bias"])
+            continue
+        sd[t + ".weight"] = _tensor(p["scale"])
+        sd[t + ".bias"] = _tensor(p["bias"])
+        s = _at(stats, j)
+        if s:
+            sd[t + ".running_mean"] = _tensor(s["mean"])
+            sd[t + ".running_var"] = _tensor(s["var"])
+    return sd
 
 
 def resnet_state_dict(bp: Mapping, bs: Mapping, prefix: str = ""
                       ) -> "OrderedDict[str, torch.Tensor]":
     """JAX ResNet101 trees -> the port's ResNet101 state_dict keys
-    (under ``prefix``)."""
-    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
-    _put_conv(sd, prefix + "conv1", bp["conv1"])
-    _put_bn(sd, prefix + "bn1", bp["bn1"], bs["bn1"])
-    for name in sorted(k for k in bp if k.startswith("layer")):
-        L, i = name.replace("layer", "").split("_")
-        tp = f"{prefix}layer{L}.{i}"
-        for k in (1, 2, 3):
-            _put_conv(sd, f"{tp}.conv{k}", bp[name][f"conv{k}"])
-            _put_bn(sd, f"{tp}.bn{k}", bp[name][f"bn{k}"], bs[name][f"bn{k}"])
-        if "downsample_conv" in bp[name]:
-            _put_conv(sd, f"{tp}.downsample.0", bp[name]["downsample_conv"])
-            _put_bn(sd, f"{tp}.downsample.1", bp[name]["downsample_bn"],
-                    bs[name]["downsample_bn"])
-    return sd
+    (under ``prefix``); the block counts are the trees' own."""
+    layers = [sum(1 for k in bp if k.startswith(f"layer{L}_"))
+              for L in (1, 2, 3)]
+    return _state_dict([(prefix + t, j) for t, j in resnet_modules(layers)],
+                       bp, bs)
 
 
-def state_dict_from_jax(params: Mapping, batch_stats: Mapping
+def state_dict_from_jax(params: Mapping, batch_stats: Mapping,
+                        cfg: Optional[Config] = None
                         ) -> "OrderedDict[str, torch.Tensor]":
-    """JAX DeepLab/ResNet101 trees (nested dicts of numpy arrays) -> the
-    port's state_dict: HWIO kernels to OIHW, BatchNorm scale/bias/mean/var
-    to weight/bias/running_mean/running_var."""
-    bp, bs = params["backbone"], batch_stats["backbone"]
-    if "layer1_0" not in bp:
-        raise NotImplementedError(
-            "only the ResNet101 backbone is ported (ROADMAP Queue 1 "
-            "item 13)")
-    sd = resnet_state_dict(bp, bs, "backbone.")
-    put_conv = partial(_put_conv, sd)
-    put_bn = partial(_put_bn, sd)
+    """The JAX package's trees of the model ``cfg`` configures (nested
+    dicts of numpy arrays; default: DeepLab/ResNet101) -> the port's
+    state_dict.  ``batch_stats`` is empty for instance and layer norms."""
+    return _state_dict(module_map(cfg or Config()), params, batch_stats)
 
-    ap, as_ = params["aspp"], batch_stats["aspp"]
-    for i in (1, 2, 3, 4):
-        put_conv(f"aspp.aspp{i}.atrous_conv", ap[f"aspp{i}"]["conv"])
-        put_bn(f"aspp.aspp{i}.bn", ap[f"aspp{i}"]["bn"], as_[f"aspp{i}"]["bn"])
-    put_conv("aspp.global_avg_pool.1", ap["gap_conv"])
-    put_bn("aspp.global_avg_pool.2", ap["gap_bn"], as_["gap_bn"])
-    put_conv("aspp.conv1", ap["proj"])
-    put_bn("aspp.bn1", ap["proj_bn"], as_["proj_bn"])
 
-    dp, ds = params["decoder"], batch_stats["decoder"]
-    put_conv("decoder.conv1", dp["ll_conv"])
-    put_bn("decoder.bn1", dp["ll_bn"], ds["ll_bn"])
-    put_conv("decoder.last_conv.0", dp["conv1"])
-    put_bn("decoder.last_conv.1", dp["bn1"], ds["bn1"])
-    put_conv("decoder.last_conv.4", dp["conv2"])
-    put_bn("decoder.last_conv.5", dp["bn2"], ds["bn2"])
-    put_conv("decoder.last_conv.8", dp["head"])
-    sd["decoder.last_conv.8.bias"] = torch.tensor(
-        np.asarray(dp["head"]["bias"]))
-    return sd
+def jax_trees_from_state_dict(sd: Mapping[str, torch.Tensor], cfg: Config
+                              ) -> Tuple[Dict, Dict]:
+    """The port's state_dict -> the JAX package's (params, batch_stats)
+    as nested dicts of numpy arrays: ``state_dict_from_jax`` backwards.
+    Every key but BatchNorm's ``num_batches_tracked`` must find its
+    place."""
+    params: Dict = {}
+    stats: Dict = {}
+    used = set()
+
+    def take(key: str) -> np.ndarray:
+        used.add(key)
+        return sd[key].detach().cpu().float().numpy()
+
+    def put(tree: Dict, path: Tuple[str, ...], leaf: str, value: np.ndarray):
+        for name in path:
+            tree = tree.setdefault(name, {})
+        tree[leaf] = np.ascontiguousarray(value)
+
+    for t, j in module_map(cfg):
+        w = take(t + ".weight")
+        if w.ndim == 4:
+            if _is_transposed(j):
+                w = w.transpose(2, 3, 0, 1)[::-1, ::-1]
+            else:
+                w = w.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+            put(params, j, "kernel", w)
+            if t + ".bias" in sd:
+                put(params, j, "bias", take(t + ".bias"))
+            continue
+        put(params, j, "scale", w)
+        put(params, j, "bias", take(t + ".bias"))
+        if t + ".running_mean" in sd:
+            put(stats, j, "mean", take(t + ".running_mean"))
+            put(stats, j, "var", take(t + ".running_var"))
+    left = [k for k in sd if k not in used
+            and not k.endswith("num_batches_tracked")]
+    if left:
+        raise KeyError(f"state_dict keys with no place in the "
+                       f"{cfg.arch} trees: {left[:5]}")
+    return params, stats
+
+
+# --------------------------------------------------------------------- #
+# ImageNet encoders
+# --------------------------------------------------------------------- #
+
+def _encoder_state_dict(pth_path: str) -> Dict[str, torch.Tensor]:
+    """The state_dict in an encoder pickle (bare, or under
+    'state_dict'); {} for anything else, which the callers refuse."""
+    data = load_reference_pth(pth_path)
+    if not isinstance(data, dict):
+        return {}
+    sd = data.get("state_dict", data)
+    return sd if isinstance(sd, dict) else {}
 
 
 def load_resnet101_imagenet(pth_path: str, model: nn.Module) -> nn.Module:
@@ -136,12 +368,163 @@ def load_resnet101_imagenet(pth_path: str, model: nn.Module) -> nn.Module:
     return model
 
 
+def expand_zoo_xception_state_dict(sd: Mapping[str, torch.Tensor]
+                                   ) -> Dict[str, torch.Tensor]:
+    """Model-zoo ``xception-b5690688`` keys -> Aligned Xception keys: the
+    zoo's middle block11 also fills blocks 12-19, block12 becomes the exit
+    block20, bn3 also fills bn4, conv4/bn4 become conv5/bn5, and 2-D
+    pointwise weights grow to [O, I, 1, 1]."""
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in sd.items():
+        if k.startswith("fc."):
+            continue
+        if "pointwise" in k and v.ndim == 2:
+            v = v.unsqueeze(-1).unsqueeze(-1)
+        if k.startswith("block11"):
+            out[k] = v
+            for n in range(12, 20):
+                out[k.replace("block11", f"block{n}")] = v
+        elif k.startswith("block12"):
+            out[k.replace("block12", "block20")] = v
+        elif k.startswith("bn3"):
+            out[k] = v
+            out[k.replace("bn3", "bn4")] = v
+        elif k.startswith("conv4"):
+            out[k.replace("conv4", "conv5")] = v
+        elif k.startswith("bn4"):
+            out[k.replace("bn4", "bn5")] = v
+        else:
+            out[k] = v
+    return out
+
+
+def _renumber_xception_reps(sd: Mapping[str, torch.Tensor]
+                            ) -> Dict[str, torch.Tensor]:
+    """Within each block, the j-th separable conv found under ``rep`` (in
+    index order) goes to the aligned block's separable j and the j-th
+    norm to its norm j, as the JAX loader counts them."""
+    pat = re.compile(r"block(\d+)\.rep\.(\d+)\.(.*)")
+    by_block: Dict[int, Dict[int, Dict[str, torch.Tensor]]] = {}
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in sd.items():
+        m = pat.fullmatch(k)
+        if m:
+            by_block.setdefault(int(m.group(1)), {}).setdefault(
+                int(m.group(2)), {})[m.group(3)] = v
+        else:
+            out[k] = v
+    for n, reps in by_block.items():
+        base = 0 if n <= 2 else 1
+        n_sep = n_bn = 0
+        for i in sorted(reps):
+            if "pointwise.weight" in reps[i]:
+                at = 3 * n_sep + base
+                n_sep += 1
+            elif "running_mean" in reps[i]:
+                at = 3 * n_bn + base + 1
+                n_bn += 1
+            else:
+                continue
+            for leaf, v in reps[i].items():
+                out[f"block{n}.rep.{at}.{leaf}"] = v
+    return out
+
+
+def load_xception_imagenet(pth_path: str, model: nn.Module,
+                           verbose: bool = False) -> nn.Module:
+    """Overlay a zoo-format ``xception-b5690688.pth`` onto
+    ``model.backbone`` in place.
+
+    The zoo checkpoint covers only part of the aligned architecture (its
+    separable convs have no inner norm, the aligned conv4 has no source),
+    so the overlay is partial: tensors that are present and of the
+    target's shape are copied, the rest keep their initialization.  Raises
+    if no weight at all maps: a wrong file must not train from scratch
+    silently."""
+    sd = _encoder_state_dict(pth_path)
+    sd = _renumber_xception_reps(expand_zoo_xception_state_dict(sd))
+    target = model.backbone.state_dict()
+    n_weights = n_stats = 0
+    with torch.no_grad():
+        for k, v in sd.items():
+            if k.endswith("num_batches_tracked"):
+                continue
+            if k not in target or tuple(target[k].shape) != tuple(v.shape):
+                if verbose:
+                    print(f"  skip {k} (shape {tuple(v.shape)})")
+                continue
+            target[k].copy_(v)
+            if k.endswith(("running_mean", "running_var")):
+                n_stats += 1
+            else:
+                n_weights += 1
+    if n_weights == 0:
+        raise ValueError(
+            f"{pth_path}: no xception backbone weights mapped — not a "
+            "zoo xception state_dict?")
+    if verbose:
+        print(f"  xception pretrained: {n_weights} weight + {n_stats} "
+              "statistic tensors")
+    return model
+
+
+def _load_named_encoder(pth_path: str, model: nn.Module, mods: ModuleMap,
+                        what: str) -> nn.Module:
+    """Copy the encoder's tensors for every module of ``mods`` into
+    ``model.backbone``; a missing key or a wrong shape raises.  Keys
+    outside ``mods`` (a classifier head) are not read."""
+    sd = _encoder_state_dict(pth_path)
+    target = model.backbone.state_dict()
+    with torch.no_grad():
+        for t, _ in mods:
+            for k in (k for k in target if k.startswith(t + ".")
+                      and not k.endswith("num_batches_tracked")):
+                if k not in sd:
+                    raise ValueError(f"{pth_path}: missing key '{k}' — not "
+                                     f"a {what} state_dict?")
+                if tuple(sd[k].shape) != tuple(target[k].shape):
+                    raise ValueError(
+                        f"Shape mismatch at {k}: {tuple(target[k].shape)} "
+                        f"vs {tuple(sd[k].shape)}")
+                target[k].copy_(sd[k])
+    return model
+
+
+def load_mobilenet_imagenet(pth_path: str, model: nn.Module) -> nn.Module:
+    """Load an ImageNet MobileNetV2 (``mobilenet_v2-6a65762b.pth``, keys
+    ``features.{i}.conv.{k}``) into ``model.backbone`` in place; the
+    ``classifier.*`` head is not read."""
+    return _load_named_encoder(pth_path, model, mobilenet_modules(),
+                               "MobileNetV2")
+
+
+def load_drn_imagenet(pth_path: str, model: nn.Module) -> nn.Module:
+    """Load an ImageNet DRN-D-54 (``drn_d_54-0e0534ff.pth``) into
+    ``model.backbone`` in place; the ``fc.*`` head is not read."""
+    return _load_named_encoder(pth_path, model, drn_modules(), "DRN-D")
+
+
+IMAGENET_LOADERS = {"resnet": load_resnet101_imagenet,
+                    "xception": load_xception_imagenet,
+                    "mobilenet": load_mobilenet_imagenet,
+                    "drn": load_drn_imagenet}
+
+
+# --------------------------------------------------------------------- #
+# model files
+# --------------------------------------------------------------------- #
+
 def load_pth_model(model_path: str, base_cfg: Optional[Config] = None
                    ) -> Tuple[Config, nn.Module]:
-    """Load a reference-schema DeepLab ``.pth`` -> (cfg, model on the CPU).
+    """Load a ``.pth`` ({'model': state_dict, 'meta': ...}) -> (cfg, model
+    on the CPU): a reference-schema DeepLab (ResNet101 or Xception), or a
+    best model the port's trainer wrote, of any architecture, under the
+    port's own names.
 
-    The checkpoint's meta rehydrates the config (arch, ch, schema,
-    normalization stats), as ``pylc_tpu.convert.load_pth_model`` does."""
+    The checkpoint's meta rehydrates the config (arch, backbone, ch,
+    schema, normalization stats), as ``pylc_tpu.convert.load_pth_model``
+    does; what the meta does not carry (``norm_type``, ``up_mode``, the
+    U-Net's depth) comes from ``base_cfg``."""
     data = load_reference_pth(model_path)
     if "model" not in data:
         raise ValueError(f"{model_path}: no 'model' state_dict")
@@ -149,9 +532,89 @@ def load_pth_model(model_path: str, base_cfg: Optional[Config] = None
     meta: Dict = dict(meta_obj.__dict__) if hasattr(meta_obj, "__dict__") \
         else (meta_obj or {})
     cfg = Config.from_meta(meta, base=base_cfg)
-    if cfg.arch != "deeplab":
-        raise NotImplementedError(
-            f".pth loading is implemented for deeplab (got {cfg.arch})")
     model = build_model(cfg)
     model.load_state_dict(data["model"], strict=True)
     return cfg, model
+
+
+CKPT_ARRAY_EXT = 1  # flax's msgpack extension type of an ndarray
+
+
+def _msgpack():
+    try:
+        import msgpack
+    except ImportError as e:
+        raise ImportError(
+            "reading or writing the JAX package's .ckpt needs the "
+            "'msgpack' package, which is not installed") from e
+    return msgpack
+
+
+def _read_ckpt_trees(path: str) -> Dict[str, Any]:
+    """flax's ``serialization.to_bytes`` without flax: plain msgpack whose
+    arrays are extension type 1, each msgpack of (shape, dtype name,
+    bytes)."""
+    msgpack = _msgpack()
+
+    def ext_hook(code, data):
+        if code != CKPT_ARRAY_EXT:
+            raise ValueError(f"{path}: msgpack extension type {code}; only "
+                             "arrays are expected in a model file")
+        shape, dtype, buf = msgpack.unpackb(data, raw=False)
+        return np.frombuffer(buf, dtype=np.dtype(dtype)).reshape(shape)
+
+    with open(path, "rb") as f:
+        blob = f.read()
+    try:
+        tree = msgpack.unpackb(blob, ext_hook=ext_hook, raw=False,
+                               strict_map_key=False)
+    except Exception as e:
+        raise ValueError(f"{path}: not a msgpack model file ({e})") from e
+    if not isinstance(tree, dict) or "params" not in tree:
+        raise ValueError(f"{path}: no 'params' tree: not a best-model .ckpt")
+    return tree
+
+
+def load_ckpt_model(path: str, base_cfg: Optional[Config] = None
+                    ) -> Tuple[Config, nn.Module]:
+    """Load the JAX package's best-model ``.ckpt`` ({params, batch_stats}
+    beside a ``.meta`` JSON) -> (cfg, model on the CPU).
+
+    The meta rehydrates the config over ``base_cfg``, which supplies what
+    the meta does not carry (``norm_type``, ``up_mode``, ``activ_type``,
+    the U-Net's depth and width).  Only the model crosses: the optimizer
+    state of a resumable ``checkpoint.ckpt`` is optax's and is not
+    bridged."""
+    cfg = base_cfg or Config()
+    if os.path.exists(path + ".meta"):
+        with open(path + ".meta") as f:
+            cfg = Config.from_meta(json.load(f), base=cfg)
+    tree = _read_ckpt_trees(path)
+    model = build_model(cfg)
+    model.load_state_dict(
+        state_dict_from_jax(tree["params"], tree.get("batch_stats") or {},
+                            cfg), strict=True)
+    return cfg, model
+
+
+def save_ckpt_model(model: nn.Module, cfg: Config, path: str) -> str:
+    """Write ``model`` as a best-model ``.ckpt`` with its ``.meta``, which
+    ``pylc_tpu.checkpoint.load_model_file`` and the JAX package's ``test``
+    read.  No optimizer state (see ``load_ckpt_model``)."""
+    msgpack = _msgpack()
+    params, stats = jax_trees_from_state_dict(model.state_dict(), cfg)
+
+    def pack(x):
+        if isinstance(x, np.ndarray):
+            return msgpack.ExtType(CKPT_ARRAY_EXT, msgpack.packb(
+                (x.shape, x.dtype.name, x.tobytes("C")), use_bin_type=True))
+        raise TypeError(f"cannot pack {type(x).__name__}")
+
+    blob = msgpack.packb({"params": params, "batch_stats": stats},
+                         default=pack, strict_types=True)
+    for target, data in ((path, blob),
+                         (path + ".meta", cfg.to_meta_json().encode())):
+        with open(target + ".tmp", "wb") as f:
+            f.write(data)
+        os.replace(target + ".tmp", target)
+    return path

@@ -7,7 +7,9 @@ current stream, and only the class-map copy to the host waits for them.
 
   host uint8 image -> one copy to the device
     -> unfold into tiles (layout moves)
-    -> forward in batches of ``batch_size`` tiles, softmax per tile
+    -> forward in batches of ``batch_size`` tiles (logits smaller than
+       the tile, a valid-conv U-Net's, are resized to it with align
+       corners), softmax per tile
     -> overlap-average stitch into an f32 canvas
     -> optional dense-CRF mean-field refinement (kernel K1)
     -> uint8 argmax -> one copy of the class map to the host
@@ -31,6 +33,7 @@ import torch
 
 from pylc_tpu_torch import native
 from pylc_tpu_torch.config import Config
+from pylc_tpu_torch.models.layers import resize_bilinear_align_corners
 from pylc_tpu_torch.ops.tiles import grid_dims, stitch_probs, unfold_tiles
 from pylc_tpu_torch.utils.imageio import adjust_to_tile, get_image
 
@@ -80,6 +83,10 @@ class Segmenter:
         # it (as a fixed-length scan must) changes nothing
         for i in range(0, n_tiles, self.batch_size):
             logits = self.predict(tiles[i:i + self.batch_size])
+            if logits.shape[1] != tile:  # valid-conv U-Net: 324 of 512
+                logits = resize_bilinear_align_corners(
+                    logits.permute(0, 3, 1, 2), tile, tile
+                ).permute(0, 2, 3, 1)
             probs[i:i + self.batch_size] = torch.softmax(logits, dim=-1)
         return stitch_probs(probs, n_rows, n_cols, tile, stride)
 

@@ -27,15 +27,18 @@ class ASPPBranch(nn.Module):
 
 
 class ASPP(nn.Module):
-    """At output stride 16: dilations 6/12/18 on a 2048-channel input."""
+    """Dilations 6/12/18 at output stride 16, 12/24/36 at 8, on the
+    backbone's ``inplanes`` channels (2048 for ResNet and Xception, 320
+    for MobileNetV2, 512 for DRN)."""
 
-    def __init__(self, norm: Callable[[int], nn.Module] = nn.BatchNorm2d):
+    def __init__(self, norm: Callable[[int], nn.Module] = nn.BatchNorm2d,
+                 inplanes: int = 2048, output_stride: int = 16):
         super().__init__()
-        inplanes = 2048
-        self.aspp1 = ASPPBranch(inplanes, 1, 1, norm)
-        self.aspp2 = ASPPBranch(inplanes, 3, 6, norm)
-        self.aspp3 = ASPPBranch(inplanes, 3, 12, norm)
-        self.aspp4 = ASPPBranch(inplanes, 3, 18, norm)
+        dil = (1, 6, 12, 18) if output_stride == 16 else (1, 12, 24, 36)
+        self.aspp1 = ASPPBranch(inplanes, 1, dil[0], norm)
+        self.aspp2 = ASPPBranch(inplanes, 3, dil[1], norm)
+        self.aspp3 = ASPPBranch(inplanes, 3, dil[2], norm)
+        self.aspp4 = ASPPBranch(inplanes, 3, dil[3], norm)
         self.global_avg_pool = nn.Sequential(
             nn.AdaptiveAvgPool2d((1, 1)),
             nn.Conv2d(inplanes, 256, 1, bias=False),

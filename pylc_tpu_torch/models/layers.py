@@ -1,4 +1,5 @@
-"""Shared layers: normalizer, activations, align-corners resize, max-pool.
+"""Shared layers: normalizers, activations, align-corners resize,
+center crop, max-pool.
 
 Port of ``pylc_tpu/models/layers.py``.  Modules here are NCHW (PyTorch's
 habit; the serving path keeps them in ``channels_last`` memory).
@@ -66,17 +67,54 @@ class BatchNorm2d(nn.BatchNorm2d):
         return y
 
 
-def make_norm(norm_type: str) -> Callable[[int], nn.Module]:
-    """Normalizer constructor (channels -> module).
+class InstanceNorm2d(nn.GroupNorm):
+    """Per sample and per channel over H x W, with a scale and a bias per
+    channel: flax ``GroupNorm(num_groups=None, group_size=1)``, eps 1e-5.
 
-    ``BatchNorm2d`` above, with torch's eps 1e-5 and running-stat momentum
-    0.1 (flax momentum 0.9).  ``syncbatch`` is plain BatchNorm on one
-    device."""
+    With one value per channel (the ASPP image-pool branch) the variance
+    is 0 and x - mean is 0, so the output is the bias, as in flax;
+    ``nn.InstanceNorm2d`` raises there in train mode.  No running
+    statistics: train and eval modes compute the same."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__(num_features, num_features, eps=eps, affine=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.shape[2] * x.shape[3] == 1:
+            c = (1, -1, 1, 1)
+            return ((x - x) * self.weight.view(c)
+                    + self.bias.view(c)).to(x.dtype)
+        return super().forward(x)
+
+
+class ChannelLayerNorm(nn.LayerNorm):
+    """Over the channels of each pixel of [N, C, H, W], with a [C] scale
+    and bias: flax ``LayerNorm`` on NHWC normalizes the last axis, which
+    ``nn.LayerNorm`` on NCHW does not.  The NHWC view of a
+    ``channels_last`` tensor is contiguous, so neither permute copies
+    there."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__(num_features, eps=eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+
+
+def make_norm(norm_type: str) -> Callable[[int], nn.Module]:
+    """Normalizer constructor (channels -> module), eps 1e-5 throughout.
+
+    ``batch``: ``BatchNorm2d`` above, running-stat momentum 0.1 (flax
+    momentum 0.9); ``syncbatch`` is plain BatchNorm on one device.
+    ``instance`` and ``layer``: the two classes above, which keep no
+    running statistics."""
     if norm_type in ("batch", "syncbatch"):
         return partial(BatchNorm2d, eps=1e-5, momentum=0.1)
-    raise NotImplementedError(
-        f"normalizer '{norm_type}' is not ported yet (ROADMAP Queue 1 "
-        "item 2: instance and layer norms, with the U-Nets of item 13)")
+    if norm_type == "instance":
+        return partial(InstanceNorm2d, eps=1e-5)
+    if norm_type == "layer":
+        return partial(ChannelLayerNorm, eps=1e-5)
+    raise ValueError(f"Unknown normalizer '{norm_type}'.")
 
 
 def resize_bilinear_align_corners(x: torch.Tensor, out_h: int, out_w: int
@@ -87,6 +125,15 @@ def resize_bilinear_align_corners(x: torch.Tensor, out_h: int, out_w: int
     y = F.interpolate(x.float(), size=(out_h, out_w), mode="bilinear",
                       align_corners=True)
     return y.to(x.dtype)
+
+
+def center_crop(x: torch.Tensor, target_h: int, target_w: int
+                ) -> torch.Tensor:
+    """Center-crop the spatial dims of [..., H, W] (a view)."""
+    h, w = x.shape[-2:]
+    dy = (h - target_h) // 2
+    dx = (w - target_w) // 2
+    return x[..., dy:dy + target_h, dx:dx + target_w]
 
 
 def max_pool_3x3_s2_p1(x: torch.Tensor) -> torch.Tensor:

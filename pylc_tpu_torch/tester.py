@@ -18,7 +18,7 @@ import torch
 import torch.nn as nn
 
 from pylc_tpu_torch.config import Config
-from pylc_tpu_torch.convert import load_pth_model
+from pylc_tpu_torch.convert import load_ckpt_model, load_pth_model
 from pylc_tpu_torch.device import resolve_device
 from pylc_tpu_torch.evaluate import Evaluator
 from pylc_tpu_torch.infer import Segmenter
@@ -30,18 +30,17 @@ from pylc_tpu_torch.utils.imageio import adjust_to_tile, collate, get_image
 def load_model(model_path: str, base_cfg: Optional[Config] = None,
                device: Union[str, torch.device, None] = None
                ) -> Tuple[Config, nn.Module, Callable]:
-    """Load a reference-schema ``.pth`` onto ``device`` (default ``cuda``;
-    without a card this raises unless the caller passes ``"cpu"``).
+    """Load a model file onto ``device`` (default ``cuda``; without a
+    card this raises unless the caller passes ``"cpu"``): a ``.pth`` (the
+    reference schema, or a best model of the port's trainer), or anything
+    else as the JAX package's best-model ``.ckpt``.
 
     Returns (cfg, model, predict_fn)."""
     if not model_path or not os.path.exists(model_path):
         raise FileNotFoundError(f"Model file {model_path} does not exist.")
-    if not model_path.endswith(".pth"):
-        raise NotImplementedError(
-            f"{model_path}: only .pth models load in the port; the JAX "
-            "package's .ckpt bridge is ROADMAP Queue 1 item 9")
     device = resolve_device(str(device or "cuda"))
-    cfg, model = load_pth_model(model_path, base_cfg)
+    load = load_pth_model if model_path.endswith(".pth") else load_ckpt_model
+    cfg, model = load(model_path, base_cfg)
     model.to(device)
     return cfg, model, make_predict(cfg, model)
 

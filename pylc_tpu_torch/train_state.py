@@ -37,15 +37,20 @@ Metrics = Dict[str, torch.Tensor]
 
 
 def init_model(cfg: Config, seed: int = 0) -> nn.Module:
-    """The configured model on the CPU, with He-normal conv weights
-    (fan-in) drawn from a ``torch.Generator`` seeded with ``seed``, zero
-    conv biases, and BatchNorm as identity."""
+    """The configured model on the CPU (its input channels those of
+    ``model_input_channels``), with He-normal conv and transposed-conv
+    weights (fan-in) drawn from a ``torch.Generator`` seeded with
+    ``seed``, zero conv biases, and the normalizers as identity."""
     model = build_model(cfg)
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, nn.Conv2d):
-                fan_in = m.weight[0].numel()
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+                # fan-in: inputs per output value.  A transposed conv's
+                # weight is [in, out / groups, kH, kW], and at stride =
+                # kernel each output pixel sums over the inputs only
+                fan_in = m.in_channels if isinstance(
+                    m, nn.ConvTranspose2d) else m.weight[0].numel()
                 m.weight.copy_(torch.randn(m.weight.shape, generator=gen)
                                * (2.0 / fan_in) ** 0.5)
                 if m.bias is not None:
@@ -57,9 +62,11 @@ def prepare_batch(cfg: Config, img: torch.Tensor,
                   mask: Optional[torch.Tensor] = None, flip: bool = False
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """uint8 [B, H, W, C] -> normalized f32 [B, H, W, C'] (grayscale
-    stacked to three channels for DeepLab), and the mask.  ``flip``
-    mirrors the whole batch and its mask along the width, as the
-    reference flips dim 3 of NCHW."""
+    stacked to three channels for DeepLab), and the mask, which the
+    U-Nets get cropped to ``cfg.crop_window``, the window their unpadded
+    convs leave (a contiguous copy: kernels K2a/K2b take no strided
+    target).  ``flip`` mirrors the whole batch and its mask along the
+    width, as the reference flips dim 3 of NCHW."""
     x = img
     if flip:
         x = x.flip(2)
@@ -70,6 +77,9 @@ def prepare_batch(cfg: Config, img: torch.Tensor,
                         default=cfg.normalize_default)
     if cfg.ch == 1 and cfg.arch == "deeplab":
         x = torch.cat([x, x, x], dim=-1)
+    if mask is not None and cfg.arch in ("unet", "resunet"):
+        lo, hi = cfg.crop_window
+        mask = mask[:, lo:hi, lo:hi].contiguous()
     return x, mask
 
 
@@ -121,8 +131,9 @@ def make_optimizer(cfg: Config, model: nn.Module, steps_per_epoch: int
                               torch.optim.lr_scheduler.LambdaLR]:
     """(optimizer, scheduler).  Each parameter group's ``lr`` is its
     multiplier (1, or ``head_lr_mult`` for everything outside
-    ``backbone.*``), which the ``LambdaLR`` scales by the schedule; step
-    the scheduler once after each optimizer step."""
+    ``backbone.*``: the whole of a model without a backbone, as the
+    U-Nets), which the ``LambdaLR`` scales by the schedule; step the
+    scheduler once after each optimizer step."""
     named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
     if cfg.head_lr_mult != 1.0:
         groups = [
@@ -132,6 +143,7 @@ def make_optimizer(cfg: Config, model: nn.Module, steps_per_epoch: int
                         if not n.startswith("backbone.")],
              "lr": cfg.head_lr_mult},
         ]
+        groups = [g for g in groups if g["params"]]
     else:
         groups = [{"params": [p for _, p in named], "lr": 1.0}]
     if cfg.optim_type == "adam":

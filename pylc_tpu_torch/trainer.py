@@ -30,7 +30,13 @@ from pylc_tpu_torch.train_state import (
     make_train_step,
 )
 
-RESNET101_IMAGENET = "./data/models/resnet101-5d3b4d8f.pth"
+# the ImageNet encoders' default paths, by backbone
+PRETRAINED_PATHS = {
+    "resnet": "./data/models/resnet101-5d3b4d8f.pth",
+    "xception": "./data/models/xception-b5690688.pth",
+    "mobilenet": "./data/models/mobilenet_v2-6a65762b.pth",
+    "drn": "./data/models/drn_d_54-0e0534ff.pth",
+}
 FLIP_SEED = 1234
 
 
@@ -38,18 +44,20 @@ def resolve_pretrained(cfg: Config) -> Optional[str]:
     """The ImageNet encoder to start from, or None to train from scratch.
 
     A missing default path is the normal train-from-scratch case; a path
-    the user gave, or the boolean ``--pretrained`` flag, must exist."""
+    the user gave, or the boolean ``--pretrained`` flag, must exist.  The
+    config's default names the ResNet101 file: another backbone reads it
+    as its own default."""
     if cfg.arch != "deeplab" or not cfg.pretrained:
         return None
-    if cfg.backbone != "resnet":
-        raise NotImplementedError(
-            f"pretrained '{cfg.backbone}' encoders are not ported (ROADMAP "
-            "Queue 1 item 13)")
     path = cfg.pretrained if isinstance(cfg.pretrained, str) else \
-        RESNET101_IMAGENET
+        PRETRAINED_PATHS[cfg.backbone]
+    if path == PRETRAINED_PATHS["resnet"] and cfg.backbone != "resnet":
+        path = PRETRAINED_PATHS[cfg.backbone]
     if os.path.exists(path):
         return path
-    explicit = cfg.pretrained is True or cfg.pretrained != RESNET101_IMAGENET
+    explicit = cfg.pretrained is True or (
+        isinstance(cfg.pretrained, str)
+        and cfg.pretrained not in PRETRAINED_PATHS.values())
     if explicit:
         raise FileNotFoundError(
             f"pretrained encoder requested but {path} does not exist; place "
@@ -93,8 +101,8 @@ def train(cfg: Config, db: Union[str, Dict], verbose: bool = True,
     pretrained_path = resolve_pretrained(cfg)
     model = init_model(cfg, seed=0)
     if pretrained_path:
-        from pylc_tpu_torch.convert import load_resnet101_imagenet
-        load_resnet101_imagenet(pretrained_path, model)
+        from pylc_tpu_torch.convert import IMAGENET_LOADERS
+        IMAGENET_LOADERS[cfg.backbone](pretrained_path, model)
         if verbose:
             print(f"Loaded pretrained encoder from {pretrained_path}")
     model.to(device, memory_format=torch.channels_last)

@@ -12,7 +12,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "pylc_tpu_torch")
 
 MODULES = [
-    "pylc_tpu_torch", "pylc_tpu_torch.__main__", "pylc_tpu_torch.cli",
+    "pylc_tpu_torch", "pylc_tpu_torch.models", "pylc_tpu_torch.ops",
+    "pylc_tpu_torch.ops.kernels", "pylc_tpu_torch.utils",
+    "pylc_tpu_torch.__main__", "pylc_tpu_torch.cli",
     "pylc_tpu_torch.config", "pylc_tpu_torch.convert",
     "pylc_tpu_torch.device",
     "pylc_tpu_torch.evaluate", "pylc_tpu_torch.infer",
@@ -20,7 +22,10 @@ MODULES = [
     "pylc_tpu_torch.tester", "pylc_tpu_torch.train_state",
     "pylc_tpu_torch.models.layers", "pylc_tpu_torch.models.resnet",
     "pylc_tpu_torch.models.aspp", "pylc_tpu_torch.models.deeplab",
-    "pylc_tpu_torch.models.registry", "pylc_tpu_torch.ops.normalize",
+    "pylc_tpu_torch.models.registry", "pylc_tpu_torch.models.xception",
+    "pylc_tpu_torch.models.mobilenet", "pylc_tpu_torch.models.drn",
+    "pylc_tpu_torch.models.unet", "pylc_tpu_torch.models.res_unet",
+    "pylc_tpu_torch.ops.normalize",
     "pylc_tpu_torch.ops.tiles", "pylc_tpu_torch.ops.crf",
     "pylc_tpu_torch.ops.kernels.crf_kernel",
     "pylc_tpu_torch.utils.imageio",
@@ -32,6 +37,17 @@ MODULES = [
     "pylc_tpu_torch.tools.k1_variants",
 ]
 BLOCKED = ("pylc_tpu", "jax", "jaxlib", "flax", "optax", "h5py")
+
+
+def test_module_list_names_every_module_of_the_port():
+    found = set()
+    for root, dirs, files in os.walk(PKG):
+        dirs[:] = [d for d in dirs if d not in ("_build", "__pycache__")]
+        for f in files:
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(root, f), REPO)[:-3]
+                found.add(rel.replace(os.sep, ".").removesuffix(".__init__"))
+    assert found - set(MODULES) == set()
 
 
 def test_port_imports_without_jax():

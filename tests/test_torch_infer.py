@@ -266,6 +266,90 @@ def test_cli_refuses_missing_card_and_unported_modes(weights, tmp_path):
         with pytest.raises(NotImplementedError, match="item 18"):
             main(["train", "--db", "x.h5", "--device", "cpu", *flag])
     ckpt = tmp_path / "m.ckpt"
-    ckpt.touch()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_model(str(ckpt), Config())
+    ckpt.touch()  # anything but a .pth is read as the JAX package's .ckpt
+    with pytest.raises(ValueError, match="not a msgpack model file"):
+        load_model(str(ckpt), Config(), "cpu")
+
+
+UNET = dict(arch="unet", unet_depth=3, unet_wf=3, input_size=TILE,
+            output_size=24)
+
+
+@pytest.fixture(scope="module")
+def unet_ckpt(tmp_path_factory):
+    """A small U-Net (64 px in, 24 px out) as the JAX package's best-model
+    ``.ckpt``, which the port reads through the bridge."""
+    from pylc_tpu.checkpoint import Checkpoint
+    cfg = Config().replace(tile_size=TILE, compute_dtype="float32", **UNET)
+    state, _ = init_state(cfg, jax.random.PRNGKey(1))
+    ckpt = Checkpoint(cfg.gen_model_id(), str(tmp_path_factory.mktemp("u")))
+    ckpt.save(state, cfg, epoch=1, is_best=True)
+    return cfg, state, ckpt.model_file
+
+
+@pytest.mark.parametrize("use_crf", [False, True], ids=["plain", "crf"])
+def test_unet_segmenter_matches_jax(unet_ckpt, photo, use_crf):
+    """Logits smaller than the tile (a valid-conv U-Net's 24 of 64 px)
+    are resized to the tile before the softmax, in both packages."""
+    cfg, state, path = unet_ckpt
+    base = PortConfig().replace(compute_dtype="float32", **UNET)
+    pcfg, _, predict = load_model(path, base, "cpu")
+    assert predict(torch.zeros(1, TILE, TILE, 3, dtype=torch.uint8)
+                   ).shape == (1, 24, 24, 9)
+    got = Segmenter(pcfg, predict, torch.device("cpu"), batch_size=4,
+                    crf=make_crf(pcfg, **CRF) if use_crf else None
+                    ).segment_array(photo, STRIDE)
+    want = JaxSegmenter(cfg, state,
+                        jax_make_predict(cfg, jax_build_model(cfg)),
+                        batch_size=4,
+                        crf=jax_make_crf(cfg, **CRF) if use_crf else None
+                        ).segment_array(photo, STRIDE)
+    assert got["class_map"].shape == (128, 192)
+    np.testing.assert_allclose(got["probs"].numpy(),
+                               np.asarray(want["probs"]), atol=1e-4)
+    differ = np.mean(got["class_map"] != want["class_map"])
+    assert differ <= 1e-3, f"class maps differ on {differ:.4%} of pixels"
+
+
+def test_unet_goes_through_every_segmenter_entry(unet_ckpt, photo):
+    """``segment_many`` and ``segment_stream`` get the resize too: all
+    three go through one canvas function."""
+    _, _, path = unet_ckpt
+    base = PortConfig().replace(compute_dtype="float32", **UNET)
+    pcfg, _, predict = load_model(path, base, "cpu")
+    seg = Segmenter(pcfg, predict, torch.device("cpu"), batch_size=4)
+    want = seg.segment_array(photo, STRIDE)["class_map"]
+    (many,) = seg.segment_many([photo], STRIDE)
+    ((_, streamed),) = seg.segment_stream([("a", photo)], STRIDE)
+    np.testing.assert_array_equal(many["class_map"], want)
+    np.testing.assert_array_equal(streamed["class_map"], want)
+
+
+def test_cli_reads_a_jax_ckpt(photo, tmp_path):
+    """``python -m pylc_tpu_torch test -l m.ckpt``: a DeepLab/MobileNetV2
+    best model of the JAX package (arch and backbone ride in its
+    ``.meta``) gives the mask of the port's Segmenter on that model."""
+    import cv2
+
+    from pylc_tpu.checkpoint import Checkpoint
+    cfg = Config().replace(tile_size=TILE, backbone="mobilenet")
+    state, _ = init_state(cfg, jax.random.PRNGKey(2))
+    ckpt = Checkpoint(cfg.gen_model_id(), str(tmp_path / "save"))
+    ckpt.save(state, cfg, epoch=1, is_best=True)
+    img_path = str(tmp_path / "photo.jpg")
+    cv2.imwrite(img_path, cv2.cvtColor(photo, cv2.COLOR_RGB2BGR))
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, "-m", "pylc_tpu_torch", "test", "-l",
+         ckpt.model_file, "-i", img_path, "--device", "cpu"],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    masks = tmp_path / "data" / "outputs" / cfg.gen_model_id() / "masks"
+    written = cv2.imread(str(masks / "photo_jpg_scale_1.0.png"))
+    assert written is not None, os.listdir(masks)
+    pcfg, model, predict = load_model(ckpt.model_file, PortConfig(), "cpu")
+    assert type(model.backbone).__name__ == "MobileNetV2"
+    want = Segmenter(pcfg, predict, torch.device("cpu")).segment_file(
+        img_path)["mask_rgb"]
+    np.testing.assert_array_equal(cv2.cvtColor(written, cv2.COLOR_BGR2RGB),
+                                  want)

@@ -156,6 +156,84 @@ def test_activation_matches_jax(name):
 
 
 def test_unported_norms_raise():
-    for name in ("instance", "layer"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """A normalizer neither package has raises the JAX package's error."""
+    for name in ("group", "none"):
+        with pytest.raises(ValueError, match="Unknown normalizer"):
+            jl.make_norm(name, train=False)
+        with pytest.raises(ValueError, match="Unknown normalizer"):
             tl.make_norm(name)
+
+
+def _norm_case(name, shape, seed):
+    """(x, scale, bias, flax module, the port's module with the same
+    scale and bias)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape).astype(np.float32) * 3 + 1
+    C = shape[-1]
+    scale, bias = (rng.standard_normal(C).astype(np.float32) for _ in "ab")
+    norm = tl.make_norm(name)(C)
+    assert norm.eps == 1e-5 and sorted(norm.state_dict()) == ["bias",
+                                                              "weight"]
+    norm.load_state_dict({"weight": torch.tensor(scale),
+                          "bias": torch.tensor(bias)}, strict=True)
+    return x, scale, bias, jl.make_norm(name, train=True)(), norm
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+@pytest.mark.parametrize("name,shape", [
+    ("instance", (2, 5, 7, 6)), ("instance", (1, 1, 1, 4)),
+    ("instance", (3, 1, 1, 4)),   # the ASPP image-pool branch: one value
+    ("instance", (1, 2, 1, 3)),
+    ("layer", (2, 5, 7, 6)), ("layer", (1, 1, 1, 4)), ("layer", (2, 3, 2, 1)),
+])
+def test_instance_and_layer_norm_match_jax(name, shape, train):
+    """Output and gradients against flax ``GroupNorm(group_size=1)`` and
+    ``LayerNorm``, neither of which keeps statistics: instance over H x W
+    per sample and channel, layer over the channels of each pixel, both
+    with a scale and a bias per channel."""
+    x, scale, bias, jnorm, norm = _norm_case(name, shape, 5)
+    params = {"scale": jnp.asarray(scale), "bias": jnp.asarray(bias)}
+    mix = np.random.default_rng(6).standard_normal(shape).astype(np.float32)
+
+    def jfwd(p, xx):
+        y = jnorm.apply({"params": p}, xx)
+        return jnp.sum(y * mix), y
+
+    (_, want), (gp, gx) = jax.value_and_grad(jfwd, argnums=(0, 1),
+                                             has_aux=True)(params,
+                                                           jnp.asarray(x))
+    norm.train(train)
+    xt = _nchw(x).requires_grad_(True)
+    y = norm(xt)
+    (y * _nchw(mix)).sum().backward()
+    np.testing.assert_allclose(_nhwc(y), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(_nhwc(xt.grad), np.asarray(gx), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(norm.weight.grad.numpy(),
+                               np.asarray(gp["scale"]), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(norm.bias.grad.numpy(),
+                               np.asarray(gp["bias"]), rtol=1e-5, atol=1e-5)
+
+
+def test_layer_norm_takes_channels_last_without_a_copy():
+    norm = tl.make_norm("layer")(8)
+    x = torch.randn(2, 8, 5, 6, generator=torch.Generator().manual_seed(0)
+                    ).contiguous(memory_format=torch.channels_last)
+    y = norm(x)
+    assert y.shape == x.shape
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    np.testing.assert_allclose(y.detach().numpy(),
+                               norm(x.contiguous()).detach().numpy(),
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape,target", [
+    ((2, 10, 12, 3), (4, 6)), ((1, 9, 9, 2), (4, 5)),   # odd margins
+    ((1, 6, 6, 1), (6, 6)), ((1, 136, 136, 2), (104, 104)),
+])
+def test_center_crop_matches_jax(shape, target):
+    x = np.random.default_rng(7).standard_normal(shape).astype(np.float32)
+    want = np.asarray(jl.center_crop(jnp.asarray(x), *target))
+    got = _nhwc(tl.center_crop(_nchw(x), *target))
+    np.testing.assert_array_equal(got, want)

@@ -168,9 +168,19 @@ def test_normalize_matches_jax(ch, default, stats):
 
 
 def test_unported_architectures_raise():
-    for kw in ({"arch": "unet"}, {"backbone": "xception"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(Config().replace(**kw))
+    """Every architecture and backbone of the JAX registry builds; a name
+    it does not have raises its error."""
+    from pylc_tpu_torch.config import Config as PortConfig
+    cfg = PortConfig()
+    with torch.device("meta"):
+        for arch in cfg.arch_options:
+            assert build_model(cfg.replace(arch=arch)) is not None
+        for backbone in ("resnet", "xception", "mobilenet", "drn"):
+            assert build_model(cfg.replace(backbone=backbone)) is not None
+    with pytest.raises(ValueError, match="not available"):
+        build_model(cfg.replace(arch="segnet"))
+    with pytest.raises(ValueError, match="Unknown backbone"):
+        build_model(cfg.replace(backbone="vgg"))
 
 
 @pytest.mark.parametrize("ch,default", [(3, False), (1, False), (1, True)])

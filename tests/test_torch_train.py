@@ -424,3 +424,30 @@ def test_fused_loss_off_is_refused():
     with pytest.raises(ValueError, match="fused loss"):
         make_train_step(Config().replace(fused_loss="off"), model, opt,
                         sched)
+
+
+def test_unet_target_crop_passes_the_loss_kernels_check():
+    """The U-Net's target is the mask's center window.  Kernels K2a/K2b
+    read the target by pixel index, so their operand check refuses a
+    strided view; ``prepare_batch`` hands over a contiguous crop."""
+    from pylc_tpu_torch.config import Config as PortConfig
+    from pylc_tpu_torch.ops.kernels.fused_loss import _check
+    from pylc_tpu_torch.train_state import prepare_batch
+    cfg = PortConfig().replace(arch="unet")
+    assert cfg.crop_window == (94, 418)
+    rng = np.random.default_rng(0)
+    img = torch.from_numpy(rng.integers(0, 256, (2, 512, 512, 3),
+                                        dtype=np.uint8))
+    mask = torch.from_numpy(rng.integers(0, 9, (2, 512, 512),
+                                         dtype=np.uint8))
+    logits = torch.zeros(2, 9, 324, 324).contiguous(
+        memory_format=torch.channels_last)
+    _, target = prepare_batch(cfg, img, mask, flip=True)
+    assert torch.equal(target, mask.flip(2)[:, 94:418, 94:418])
+    C, N, HW, *_ = _check(logits, target, None, "K2")
+    assert (C, N, HW) == (9, 2 * 324 * 324, 324 * 324)
+    with pytest.raises(ValueError, match="contiguous uint8"):
+        _check(logits, mask[:, 94:418, 94:418], None, "K2")
+    # DeepLab keeps the whole mask
+    _, whole = prepare_batch(PortConfig(), img, mask)
+    assert whole.shape == (2, 512, 512)

@@ -230,3 +230,149 @@ def test_train_cli_runs_on_the_cpu(tmp_path, h5_db):
     model_dir = tmp_path / "data" / "save" / model_id
     assert (model_dir / f"{model_id}.pth").exists()
     assert json.loads((model_dir / "losses.json").read_text())["valid"]
+
+
+@pytest.mark.parametrize("backbone", ["resnet", "xception", "mobilenet",
+                                      "drn"])
+def test_pretrained_rule_matches_jax_for_every_backbone(backbone, tmp_path,
+                                                        monkeypatch):
+    """The JAX trainer's rule and default paths: the config's default
+    names the ResNet101 file, which another backbone reads as its own
+    default; a missing default trains from scratch; the flag or a path of
+    the user's own must exist; the U-Nets have no encoder."""
+    from pylc_tpu_torch.config import Config as PortConfig
+    from pylc_tpu_torch.trainer import PRETRAINED_PATHS, resolve_pretrained
+    monkeypatch.chdir(tmp_path)
+    cfg = PortConfig().replace(backbone=backbone)
+    own = PRETRAINED_PATHS[backbone]
+    assert os.path.basename(own) == {
+        "resnet": "resnet101-5d3b4d8f.pth",
+        "xception": "xception-b5690688.pth",
+        "mobilenet": "mobilenet_v2-6a65762b.pth",
+        "drn": "drn_d_54-0e0534ff.pth"}[backbone]
+    assert cfg.pretrained == PRETRAINED_PATHS["resnet"]
+    assert resolve_pretrained(cfg) is None
+    # another backbone's default is a default still: no loud failure
+    other = PRETRAINED_PATHS["drn" if backbone != "drn" else "xception"]
+    assert resolve_pretrained(cfg.replace(pretrained=other)) is None
+    with pytest.raises(FileNotFoundError, match=os.path.basename(own)):
+        resolve_pretrained(cfg.replace(pretrained=True))
+    with pytest.raises(FileNotFoundError, match="mine.pth"):
+        resolve_pretrained(cfg.replace(pretrained="./mine.pth"))
+    os.makedirs("data/models")
+    open(own, "wb").close()
+    assert resolve_pretrained(cfg) == own
+    assert resolve_pretrained(cfg.replace(pretrained=True)) == own
+    assert resolve_pretrained(cfg.replace(arch="unet",
+                                          pretrained=True)) is None
+
+
+def test_trainer_loads_the_backbones_encoder(tmp_path, monkeypatch):
+    """``train`` with an encoder file at a path of the user's: the
+    backbone starts from it (MobileNetV2; a wrong file fails loudly)."""
+    from pylc_tpu_torch.config import Config as PortConfig
+    imgs, masks = _tiles()
+    cfg = PortConfig().replace(
+        tile_size=TILE, batch_size=BATCH, n_epochs=1, lr=0.0,
+        weight_decay=0.0, compute_dtype="float32", backbone="mobilenet",
+        save_dir=str(tmp_path), pretrained=str(tmp_path / "enc.pth"))
+    db = {"img": imgs, "mask": masks, "meta": cfg.replace(id="m").to_meta()}
+    gen = torch.Generator().manual_seed(9)
+    sd = {k: torch.rand(v.shape, generator=gen) + 0.5
+          for k, v in build_model(cfg).backbone.state_dict().items()
+          if v.is_floating_point()}
+    torch.save({"not": torch.zeros(1)}, cfg.pretrained)
+    with pytest.raises(ValueError, match="not a MobileNetV2"):
+        train(cfg, db, verbose=False, device="cpu")
+    torch.save(sd, cfg.pretrained)
+    model = train(cfg, db, verbose=False, device="cpu")["model"]
+    got = model.backbone.state_dict()
+    for k in sd:  # lr 0: the weights are the file's still
+        if not k.endswith(("running_mean", "running_var")):
+            assert torch.equal(got[k], sd[k]), k
+
+
+UNET = dict(unet_depth=3, unet_wf=3, input_size=64, output_size=24)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(UNET, arch="unet", up_mode="upconv", ch=1),
+    dict(UNET, arch="resunet", norm_type="layer", activ_type="gelu"),
+    dict(UNET, arch="unet", norm_type="instance", head_lr_mult=10.0),
+], ids=["unet_upconv_ch1", "resunet_layer_gelu", "unet_instance_head_lr"])
+def test_trainer_and_tester_run_the_unets(kw, tmp_path):
+    """``trainer.train`` on a U-Net (the mask cropped to the 24 px the
+    unpadded convs leave of 64), its best model under the port's own key
+    names through ``tester.test`` with the CRF on, all on the CPU."""
+    from pylc_tpu_torch.config import Config as PortConfig
+    from pylc_tpu_torch.tester import test as port_test
+    ch = kw.get("ch", 3)
+    rng = np.random.default_rng(2)
+    cfg = PortConfig().replace(
+        tile_size=64, batch_size=BATCH, n_epochs=1, compute_dtype="float32",
+        save_dir=str(tmp_path / "save"), output_dir=str(tmp_path / "out"),
+        **kw)
+    db = {"img": rng.integers(0, 256, (6, ch, 64, 64), dtype=np.uint8),
+          "mask": rng.integers(0, 9, (6, 64, 64), dtype=np.uint8),
+          "meta": cfg.replace(id="mem").to_meta()}
+    summary = train(cfg, db, verbose=False, device="cpu")
+    assert summary["steps"] == 2 and 0 < summary["best_dice"] < 1
+    pth = os.path.join(cfg.save_dir, summary["model_id"],
+                       summary["model_id"] + ".pth")
+    best = torch.load(pth, weights_only=True)
+    assert best["meta"]["arch"] == kw["arch"]
+    assert "enc0.conv0.weight" in best["model"]
+    assert best["model"]["enc0.conv0.weight"].shape[1] == ch
+
+    photo = str(tmp_path / "photo.jpg")
+    img = rng.integers(0, 256, (128, 192, 3), dtype=np.uint8)
+    cv2.imwrite(photo, img)
+    (res,) = port_test(cfg, pth, photo, scale=1.0, use_crf=True,
+                       device="cpu")
+    (mask,) = (tmp_path / "out" / summary["model_id"] / "masks").iterdir()
+    assert cv2.imread(str(mask)).shape == (128, 192, 3)
+    assert res["megapixels"] == pytest.approx(128 * 192 / 1e6)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--backbone", "mobilenet"],
+    ["--backbone", "drn", "--normalize", "instance"],
+    ["--backbone", "xception", "--normalize", "layer", "--activation",
+     "lrelu"],
+], ids=["mobilenet", "drn_instance", "xception_layer"])
+def test_train_cli_runs_the_new_backbones_on_the_cpu(flags, tmp_path, h5_db):
+    """``python -m pylc_tpu_torch train --backbone ... --normalize ...
+    --device cpu``, and for the BatchNorm model (the meta does not carry
+    the normalizer) ``test`` on its best model."""
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, "-m", "pylc_tpu_torch", "train", "--db", h5_db,
+         "--batch_size", "2", "--n_epochs", "1", "--device", "cpu", *flags],
+        cwd=str(tmp_path), env=env, capture_output=True, text=True,
+        timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "Training done: 4 steps" in out.stdout
+    model_id = Config().gen_model_id()
+    pth = tmp_path / "data" / "save" / model_id / f"{model_id}.pth"
+    best = torch.load(str(pth), weights_only=True)
+    assert best["meta"]["backbone"] == flags[1]
+    keys = {"mobilenet": "backbone.features.17.conv.7.weight",
+            "drn": "backbone.layer8.0.weight",
+            "xception": "backbone.block20.rep.8.weight"}
+    assert keys[flags[1]] in best["model"]
+    assert ("backbone.bn1.running_mean" in best["model"]
+            or "backbone.features.0.1.running_mean" in best["model"]) \
+        == (len(flags) == 2)
+    if len(flags) > 2:
+        return
+    photo = str(tmp_path / "photo.jpg")
+    cv2.imwrite(photo, np.random.default_rng(3).integers(
+        0, 256, (32, 64, 3), dtype=np.uint8))
+    out = subprocess.run(
+        [sys.executable, "-m", "pylc_tpu_torch", "test", "-l", str(pth),
+         "-i", photo, "--crf", "--device", "cpu"],
+        cwd=str(tmp_path), env=env, capture_output=True, text=True,
+        timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    (mask,) = (tmp_path / "data" / "outputs" / model_id / "masks").iterdir()
+    assert cv2.imread(str(mask)).shape == (32, 64, 3)
