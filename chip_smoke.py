@@ -54,6 +54,22 @@ Phases, in order; any failed check raises, and the script exits non-zero:
            through ``tester.load_model`` and segments a 1024x1024 photo;
            then 10 timed steps on one fixed batch, whose loss must fall,
            one of them under ``torch.profiler``.
+  [data]   the data-preparation path at an archive's size: 4 seeded
+           3872x2592 photos (``utils/synthetic.textured_scene``, JPEG)
+           with palette-exact schema_a masks (PNG) through ``Extractor``
+           (512 px tiles at stride 512), ``Augmentor.optimize`` and
+           ``oversample`` on an in-memory DB, then 2 steps of
+           ``trainer.train`` (DeepLabV3+/ResNet101, batch 8, bf16, the
+           fused loss) on the first 20 augmented tiles.  The same
+           extraction on the CPU gives the same bytes and meta; the
+           profile's histograms are equal and its means and stds within
+           1e-5; ``optimize`` is equal; ``oversample`` at the same seed on
+           the CPU agrees (masks equal, images within 1 grey level, each
+           on 99.9% of the pixels); K2a and K2b run once per step.  Per
+           photo the extraction's seconds and MP/s, one photo's stages,
+           the profile's and ``optimize``'s seconds, the warped tiles per
+           second, the device's busy share of the profile and of
+           ``oversample`` (``torch.profiler``), and the peak memory.
   [zoo]    the rest of the model zoo at full width and depth, seeded
            weights: for each of eight models (DeepLab on Xception,
            MobileNetV2 and DRN-D-54; U-Net and ResUNet with ``upsample``;
@@ -151,6 +167,12 @@ TRAIN_EPOCHS = 2
 FIXED_STEPS = 10               # timed steps on one fixed batch
 TRAIN_PHOTO_HW = (1024, 1024)  # segmented by the trained model
 RESIDUAL_GAIN = 0.03           # see phase_zoo's network checks
+DATA_PHOTOS = 4                # [data]: seeded photo and mask pairs
+DATA_PHOTO_HW = (2592, 3872)   # bench.py's photo and the archive's scans
+DATA_TRAIN_TILES = 20          # of the augmented DB: 16 train, 4 valid
+DATA_STEPS = 2                 # train steps of 8 tiles on them
+DATA_AGREEMENT = 0.999         # oversample card vs CPU, pixel share
+DATA_PROFILE_RTOL = 1e-5       # px_mean / px_std, card vs CPU (f32 sums)
 ZOO_STEPS = 5                  # train steps on one fixed batch, per model
 ZOO_PHOTO_HW = (1024, 1024)    # MobileNetV2, DRN-D-54 and ResUNet
 
@@ -924,6 +946,238 @@ def phase_train(device, workdir):
     return launches
 
 
+def write_data_photos(workdir, cfg):
+    """DATA_PHOTOS seeded photos (JPEG) and their palette-exact masks
+    (PNG) under workdir/images and workdir/masks, made in parallel.
+    Returns (image dir, mask dir)."""
+    import cv2
+    from pylc_tpu_torch.utils.synthetic import textured_scene
+    img_dir, mask_dir = (os.path.join(workdir, d) for d in ("images",
+                                                            "masks"))
+    os.makedirs(img_dir)
+    os.makedirs(mask_dir)
+    pal = np.asarray(cfg.palette_rgb, np.uint8)
+
+    def one(i):
+        true, photo, _ = textured_scene(*DATA_PHOTO_HW, cfg.n_classes,
+                                        np.random.default_rng(60 + i))
+        cv2.imwrite(os.path.join(img_dir, f"scan{i}.jpg"), photo[..., ::-1],
+                    [cv2.IMWRITE_JPEG_QUALITY, 95])
+        cv2.imwrite(os.path.join(mask_dir, f"scan{i}.png"),
+                    pal[true][..., ::-1])
+
+    with ThreadPoolExecutor(max_workers=DATA_PHOTOS) as ex:
+        for f in [ex.submit(one, i) for i in range(DATA_PHOTOS)]:
+            f.result()
+    return img_dir, mask_dir
+
+
+def _profile_fields(meta):
+    return {k: getattr(meta, k) for k in (
+        "px_dist", "dset_px_dist", "dset_px_count", "probs", "weights",
+        "m2", "jsd", "n_samples", "tile_px_count")}
+
+
+def device_share(tag, fn):
+    """``fn()`` once under torch.profiler: its wall, the device time of
+    its CUDA events (kernels and copies) and the busy share, and the top
+    five events.  Returns fn's result."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    log(f"{tag} profiled: wall {wall_ms:.1f} ms, device {busy_ms:.2f} ms, "
+        f"busy share {busy_ms / wall_ms:.3f}; top: " + "; ".join(
+            f"{e.self_device_time_total / 1e3:.2f} ms x{e.count} "
+            f"{e.key[:40]}" for e in events[:5]))
+    return out
+
+
+def _extract_stages(cfg, device, img_path, mask_path):
+    """One photo's extraction stage by stage, on the host clock: the two
+    decodes, then the image's and the mask's upload, unfold (and encode)
+    and download, each ending in its download."""
+    import cv2
+    from pylc_tpu_torch.extract import Extractor
+    from pylc_tpu_torch.utils.imageio import get_image
+    ex = Extractor(cfg, device)
+    ms = []
+    for fn in (lambda: get_image(img_path, 3, scale=1.0)[0],
+               lambda: get_image(mask_path, 3, scale=1.0,
+                                 interpolate=cv2.INTER_NEAREST)[0]):
+        t0 = time.perf_counter()
+        arrays = fn()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        (ex._tile_image if len(ms) == 1 else ex._encode_mask)(arrays,
+                                                              cfg.stride)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+def phase_data(device, workdir, card):
+    """The data-preparation path on the card (extract, profile, optimize,
+    oversample, two train steps), each stage held against the CPU.
+    Returns the K2a and K2b launches of the train steps."""
+    from pylc_tpu_torch.augment import Augmentor
+    from pylc_tpu_torch.config import Config
+    from pylc_tpu_torch.db import TileDB
+    from pylc_tpu_torch.extract import Extractor
+    from pylc_tpu_torch.ops.kernels.fused_loss import (
+        fused_loss_backward, fused_loss_forward)
+    from pylc_tpu_torch.trainer import train
+
+    cfg = Config().replace(save_dir=os.path.join(workdir, "save"),
+                           n_epochs=1)
+    t0 = time.perf_counter()
+    img_dir, mask_dir = write_data_photos(workdir, cfg)
+    log(f"[data] {DATA_PHOTOS} seeded {DATA_PHOTO_HW[1]}x{DATA_PHOTO_HW[0]} "
+        f"photos and masks written in {time.perf_counter() - t0:.2f} s "
+        "(set-up)")
+    torch.cuda.reset_peak_memory_stats(device)
+
+    # each photo on its own, timed
+    mp = DATA_PHOTO_HW[0] * DATA_PHOTO_HW[1] / 1e6
+    for name in sorted(os.listdir(img_dir)):
+        stem = os.path.splitext(name)[0]
+        t0 = time.perf_counter()
+        one = Extractor(cfg, device).load(
+            os.path.join(img_dir, name),
+            os.path.join(mask_dir, stem + ".png")).extract(verbose=False)
+        secs = time.perf_counter() - t0
+        log(f"[data] extract {name}: {one.meta.n_tiles} tiles and masks in "
+            f"{secs:.3f} s = {mp / secs:.2f} MP/s (decode, upload, unfold, "
+            f"encode, download) ({card})")
+
+    name = sorted(os.listdir(img_dir))[0]
+    d_img, tile_ms, d_mask, enc_ms = _extract_stages(
+        cfg, device, os.path.join(img_dir, name),
+        os.path.join(mask_dir, os.path.splitext(name)[0] + ".png"))
+    log(f"[data] {name} by stage: decode the JPEG {d_img:.1f} ms, upload, "
+        f"unfold and download its tiles {tile_ms:.1f} ms; decode the PNG "
+        f"mask {d_mask:.1f} ms, upload, unfold, encode and download "
+        f"{enc_ms:.1f} ms ({card})")
+
+    # the directory, as a user runs it
+    ex = Extractor(cfg, device).load(img_dir, mask_dir)
+    t0 = time.perf_counter()
+    ex.extract(verbose=False).coshuffle()
+    secs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ex.profile()
+    torch.cuda.synchronize()
+    prof_s = time.perf_counter() - t0
+    db = ex.get_data()
+    n = db.size
+    log(f"[data] extract of the directory: {n} tiles and masks "
+        f"({db.data['img'].nbytes / 2 ** 20:.1f} + "
+        f"{db.data['mask'].nbytes / 2 ** 20:.1f} MiB) in {secs:.3f} s = "
+        f"{DATA_PHOTOS * mp / secs:.2f} MP/s; profile {prof_s:.3f} s "
+        f"({card})")
+
+    ref = Extractor(cfg, "cpu").load(img_dir, mask_dir)
+    ref.extract(verbose=False).coshuffle().profile()
+    rdb = ref.get_data()
+    for k in ("img", "mask"):
+        if not np.array_equal(db.data[k], rdb.data[k]):
+            raise AssertionError(f"[data] extracted {k} differ from the CPU")
+    if ex.meta.extract != ref.meta.extract or \
+            ex.meta.n_tiles != ref.meta.n_tiles:
+        raise AssertionError(f"[data] extract meta {ex.meta.extract} != "
+                             f"{ref.meta.extract}")
+    if _profile_fields(ex.meta) != _profile_fields(ref.meta):
+        raise AssertionError("[data] profile histograms differ from the CPU")
+    worst = 0.0
+    for k in ("px_mean", "px_std"):
+        a, b = np.asarray(getattr(ex.meta, k)), np.asarray(
+            getattr(ref.meta, k))
+        worst = max(worst, float(np.max(np.abs(a - b) / np.abs(b))))
+    if worst > DATA_PROFILE_RTOL:
+        raise AssertionError(f"[data] px_mean/px_std differ by {worst:.3e}")
+    log(f"[data] card against CPU: tiles, masks and the extract meta equal "
+        f"byte for byte; profile histograms equal, px_mean/px_std within "
+        f"{worst:.3e} (limit {DATA_PROFILE_RTOL})")
+
+    device_share("[data] profile of the DB", ex.profile)
+    aug = Augmentor(cfg, device).load(db)
+    t0 = time.perf_counter()
+    aug.optimize()
+    opt_s = time.perf_counter() - t0
+    ref_aug = Augmentor(cfg, "cpu").load(rdb).optimize()
+    om = aug.optim_meta
+    if not np.array_equal(aug.rates, ref_aug.rates) or any(
+            not np.array_equal(om[k], v)
+            for k, v in ref_aug.optim_meta.items()):
+        raise AssertionError("[data] optimize differs from the CPU's")
+    if om["aug_n_samples"] < 1:
+        raise AssertionError("[data] optimize chose no copies to warp")
+    log(f"[data] optimize: {opt_s:.3f} s, threshold {om['threshold']:.2f}, "
+        f"rate_coef {om['rate_coef']:.0f}, +{om['aug_n_samples']} copies, "
+        f"JSD {ex.meta.jsd:.4f} -> {om['jsd']:.4f}; equal to the CPU's "
+        f"({card})")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    aug.oversample(seed=0)
+    torch.cuda.synchronize()
+    over_s = time.perf_counter() - t0
+    ref_aug.oversample(seed=0)
+    n_out = len(aug.out_imgs)
+    diff = np.abs(aug.out_imgs.astype(np.int16) - ref_aug.out_imgs)
+    img_share = float(np.mean(diff <= 1))
+    mask_share = float(np.mean(aug.out_masks == ref_aug.out_masks))
+    log(f"[data] oversample: {om['aug_n_samples']} copies warped and "
+        f"{n_out} tiles profiled in {over_s:.3f} s = "
+        f"{om['aug_n_samples'] / over_s:.2f} warped tiles/s, "
+        f"{n_out / over_s:.2f} output tiles/s ({card}); against the CPU at "
+        f"the same seed: images within 1 grey level on {img_share:.6f} of "
+        f"the pixels (max difference {int(diff.max())}), masks equal on "
+        f"{mask_share:.6f} (limits {DATA_AGREEMENT})")
+    if n_out != len(ref_aug.out_imgs) or img_share < DATA_AGREEMENT or \
+            mask_share < DATA_AGREEMENT:
+        raise AssertionError("[data] oversample disagrees with the CPU")
+    again = Augmentor(cfg, device).load(db).optimize()
+    device_share("[data] oversample", lambda: again.oversample(seed=0))
+    peak = torch.cuda.max_memory_allocated(device)
+
+    data = aug.get_data().data
+    data = {"img": data["img"][:DATA_TRAIN_TILES],
+            "mask": data["mask"][:DATA_TRAIN_TILES], "meta": data["meta"]}
+    fused_loss_forward.launches = fused_loss_backward.launches = 0
+    t0 = time.perf_counter()
+    summary = train(cfg, data, None, False, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = (fused_loss_forward.launches, fused_loss_backward.launches)
+    with open(os.path.join(cfg.save_dir, summary["model_id"],
+                           "losses.json")) as f:
+        losses = json.load(f)
+    rows = losses["train"] + losses["valid"]
+    finite = bool(rows) and bool(np.isfinite(
+        np.asarray([r[1:] for r in rows], np.float64)).all())
+    log(f"[data] trainer.train on the augmented DB's first "
+        f"{DATA_TRAIN_TILES} tiles: {summary['steps']} steps of "
+        f"{cfg.batch_size} in {wall:.2f} s wall (2 validations, "
+        f"checkpoints); K2a launches {launches[0]}, K2b launches "
+        f"{launches[1]} (expected {DATA_STEPS} each); losses "
+        f"{[[round(v, 4) for v in r[1:]] for r in rows]}; peak device "
+        f"memory of extract to oversample {peak / 2 ** 30:.3f} GiB ({card})")
+    if summary["steps"] != DATA_STEPS or launches != (DATA_STEPS,) * 2 \
+            or not finite:
+        raise AssertionError(f"[data] {summary['steps']} steps, K2 launches "
+                             f"{launches}, finite losses {finite}")
+    return launches
+
+
 # [zoo]: (name, what differs from the default config)
 ZOO_MODELS = [
     ("deeplab_xception", dict(backbone="xception")),
@@ -1141,13 +1395,16 @@ def main() -> int:
         k2a_launches, k2b_launches = phase_train(device, workdir)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(dir=build_root) as workdir:
+        data_launches = phase_data(device, workdir, card)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=build_root) as workdir:
         zoo = phase_zoo(device, workdir)
     # each path's launches: the count set to 0 just before it, read just
     # after; "launches" is the first path's
     k1_paths = {"slice": launches, "many": many_launches,
                 **{k: v for k, v in zoo.items() if k.endswith("_photo")}}
-    k2_paths = [{"train": n, **{k: v[i] for k, v in zoo.items()
-                                if k.endswith("_train")}}
+    k2_paths = [{"train": n, "data": data_launches[i],
+                 **{k: v[i] for k, v in zoo.items() if k.endswith("_train")}}
                 for i, n in enumerate((k2a_launches, k2b_launches))]
     for paths in (k1_paths, *k2_paths):
         idle = [k for k, v in paths.items() if v < 1]

@@ -4,9 +4,11 @@ plus ``--device``.
 ``python -m pylc_tpu_torch <mode> ... [--device cuda|cuda:N|cpu]``.  Flag
 names follow reference utils/argparse.py:22-337, as ``pylc_tpu/cli.py``'s
 do, so existing invocations keep working (``tests/test_torch_config.py``
-holds the two parsers to equal configs).  ``train`` and ``test`` run in
-the port; every other mode parses and then raises, naming the ROADMAP
-item that ports it.  ``train --db`` reads an HDF5 DB, so it needs h5py.
+holds the two parsers to equal configs).  ``extract``, ``profile``,
+``augment``, ``merge``, ``grayscale``, ``train`` and ``test`` run in the
+port; ``export`` and ``serve`` parse and then raise, naming the ROADMAP
+item that ports them.  Every mode that reads or writes an ``.h5`` DB
+needs h5py.
 """
 
 from __future__ import annotations
@@ -15,17 +17,12 @@ import argparse
 import os
 
 from pylc_tpu_torch.config import Config
-from pylc_tpu_torch.device import resolve_device
+from pylc_tpu_torch.device import check_n_devices, resolve_device
 
 DEVICE_HELP = "torch device: cuda (default), cuda:N or cpu"
 
 # mode -> the ROADMAP Queue 1 item that ports it
 NOT_PORTED = {
-    "extract": "item 15 (ops/profile.py and extract.py)",
-    "profile": "item 15 (ops/profile.py and extract.py)",
-    "augment": "item 16 (augment_ops.py and augment.py)",
-    "merge": "item 16 (augment_ops.py and augment.py)",
-    "grayscale": "item 16 (augment_ops.py and augment.py)",
     "export": "item 19 (export.py, server.py)",
     "serve": "item 19 (export.py, server.py)",
 }
@@ -218,21 +215,94 @@ def _cfg_from_args(args) -> Config:
     return cfg.replace(**updates)
 
 
+def run_extract(args, device):
+    from pylc_tpu_torch.extract import Extractor
+    cfg = _cfg_from_args(args)
+    print(f"Extracting tiles from:\n\t{args.img}\n\t{args.mask}")
+    ex = Extractor(cfg, device).load(args.img, args.mask)
+    ex.extract().coshuffle().profile()
+    path = ex.save(args.output)
+    print(f"Saved {ex.meta.n_tiles} tiles to {path}")
+
+
+def run_augment(args, device):
+    from pylc_tpu_torch.augment import Augmentor
+    cfg = _cfg_from_args(args)
+    print(f"Augmenting database:\n\t{args.db}")
+    aug = Augmentor(cfg, device).load(args.db).optimize()
+    om = aug.optim_meta
+    print(f"  optimal threshold {om['threshold']:.2f}, rate_coef "
+          f"{om['rate_coef']:.0f}, +{om['aug_n_samples']} samples, "
+          f"JSD {om['jsd']:.4f}")
+    aug.oversample()
+    path = aug.save(args.output)
+    print(f"Saved augmented DB to {path}")
+
+
+def run_merge(args, device):
+    from pylc_tpu_torch.augment import merge_dbs
+    cfg = _cfg_from_args(args)
+    out = args.output or os.path.join(cfg.db_dir, "merged.h5")
+    path = merge_dbs(args.dbs, out, cfg, device=device)
+    print(f"Merged {len(args.dbs)} databases into {path}")
+
+
+def run_grayscale(args, device):
+    from pylc_tpu_torch.augment import grayscale_db
+    cfg = _cfg_from_args(args)
+    out = args.output or os.path.splitext(args.db)[0] + "_gs.h5"
+    path = grayscale_db(args.db, out, cfg, device=device)
+    print(f"Grayscaled database saved to {path}")
+
+
+def run_profile(args, device):
+    from pylc_tpu_torch.db.database import TileDB
+    from pylc_tpu_torch.ops.profile import profile_tiles
+    cfg = _cfg_from_args(args)
+    db = TileDB(args.db)
+    meta = db.get_meta(base=cfg)
+    prof = profile_tiles(db.iter_chunks(512), meta.n_classes,
+                         meta.tile_size, device)
+    meta = meta.replace(**prof)
+    print_profile(meta)
+
+
+def run_train(args, device):
+    from pylc_tpu_torch.trainer import train
+    cfg = _cfg_from_args(args)
+    summary = train(cfg, args.db, n_devices=args.n_devices, device=device)
+    print(f"\nTraining done: {summary['steps']} steps, best dice "
+          f"{summary['best_dice']:.4f}, {summary['wall_s']:.1f}s")
+
+
 def run_test(args, device):
     from pylc_tpu_torch.tester import test
     cfg = _cfg_from_args(args)
     test(cfg, args.model, args.img, mask_path=args.mask, scale=args.scale,
          save_logits=args.save_logits,
          aggregate_metrics=args.aggregate_metrics,
-         use_crf=args.crf, device=device)
+         use_crf=args.crf, n_devices=args.n_devices, device=device)
 
 
-def run_train(args, device):
-    from pylc_tpu_torch.trainer import train
-    cfg = _cfg_from_args(args)
-    summary = train(cfg, args.db, device=device)
-    print(f"\nTraining done: {summary['steps']} steps, best dice "
-          f"{summary['best_dice']:.4f}, {summary['wall_s']:.1f}s")
+def print_profile(meta: Config):
+    print(f"\nProfile Metadata\n{'-' * 60}")
+    print(f"{'ID':24s}{meta.id}")
+    print(f"{'Channels':24s}{meta.ch} ({meta.ch_label})")
+    print(f"{'Classes':24s}{meta.n_classes}")
+    print(f"{'Samples':24s}{meta.n_samples}")
+    print(f"{'Tile size':24s}{meta.tile_size}px")
+    print(f"{'Pixel mean':24s}{meta.px_mean}")
+    print(f"{'Pixel std':24s}{meta.px_std}")
+    print(f"{'M2':24s}{meta.m2:.4f}")
+    print(f"{'JSD':24s}{meta.jsd:.4f}")
+    print(f"\n{'Class':28s}{'Probs':>10s}{'Weights':>10s}")
+    for i, lbl in enumerate(meta.class_labels):
+        print(f"{lbl:28s}{meta.probs[i]:>10.4f}{meta.weights[i]:>10.4f}")
+
+
+MODES = {"extract": run_extract, "profile": run_profile,
+         "augment": run_augment, "merge": run_merge,
+         "grayscale": run_grayscale, "train": run_train, "test": run_test}
 
 
 def main(argv=None):
@@ -241,9 +311,7 @@ def main(argv=None):
         raise NotImplementedError(
             f"mode '{args.mode}' is not ported to PyTorch yet: ROADMAP "
             f"Queue 1 {NOT_PORTED[args.mode]}")
-    if getattr(args, "n_devices", None) not in (None, 1):
-        raise NotImplementedError(
-            f"multi-GPU {args.mode} is ROADMAP Queue 1 item 18")
+    check_n_devices(getattr(args, "n_devices", None))
     if getattr(args, "multihost", False):
         raise NotImplementedError(
             "multi-host training is ROADMAP Queue 1 item 18")
@@ -252,4 +320,4 @@ def main(argv=None):
     for d in (cfg.root, cfg.db_dir, cfg.save_dir, cfg.model_dir,
               cfg.output_dir):
         os.makedirs(d, exist_ok=True)
-    {"train": run_train, "test": run_test}[args.mode](args, device)
+    MODES[args.mode](args, device)

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -22,3 +24,12 @@ def resolve_device(name: str = "cuda") -> torch.device:
     elif device.type != "cpu":
         raise ValueError(f"unsupported device '{name}' (cuda or cpu)")
     return device
+
+
+def check_n_devices(n_devices: Optional[int]) -> None:
+    """The device count an entry point was asked for: ``None`` or 1 run
+    on one device; several are ROADMAP Queue 1 item 18 and raise."""
+    if n_devices not in (None, 1):
+        raise NotImplementedError(
+            f"n_devices={n_devices}: several GPUs are ROADMAP Queue 1 "
+            "item 18; pass None or 1")

@@ -1,1 +1,2 @@
-"""Tensor ops of the port: normalize, tiles, dense CRF."""
+"""Tensor ops of the port: normalize, tiles, dense CRF, losses, palette,
+profile and augmentation."""

@@ -190,7 +190,8 @@ def _check(logits: torch.Tensor, target: torch.Tensor,
     B, C, H, W = logits.shape
     if not 1 <= C <= MAX_CLASSES:
         raise ValueError(f"{name}: {C} classes, the kernel takes at most "
-                         f"MAX_CLASSES = {MAX_CLASSES}")
+                         f"MAX_CLASSES = {MAX_CLASSES}; train with "
+                         "fused_loss='off' (the plain multi_loss) for more")
     if not 1 <= B <= MAX_BATCH or H * W < 1:
         raise ValueError(f"{name}: batch {B} of {H}x{W} pixels, the kernel "
                          f"takes 1 to {MAX_BATCH} images of at least one "

@@ -19,7 +19,7 @@ import torch.nn as nn
 
 from pylc_tpu_torch.config import Config
 from pylc_tpu_torch.convert import load_ckpt_model, load_pth_model
-from pylc_tpu_torch.device import resolve_device
+from pylc_tpu_torch.device import check_n_devices, resolve_device
 from pylc_tpu_torch.evaluate import Evaluator
 from pylc_tpu_torch.infer import Segmenter
 from pylc_tpu_torch.ops.tiles import grid_dims
@@ -48,11 +48,15 @@ def load_model(model_path: str, base_cfg: Optional[Config] = None,
 def test(cfg: Config, model_path: str, img_path: str,
          mask_path: Optional[str] = None, scale: Optional[float] = None,
          save_logits: bool = False, aggregate_metrics: bool = False,
-         use_crf: bool = False,
+         use_crf: bool = False, verbose: bool = True,
+         n_devices: Optional[int] = None, *,
          device: Union[str, torch.device, None] = None) -> List[dict]:
     """Run the full test pipeline over one or more images on one device
     (default ``cuda``; without a card this raises unless the caller passes
-    ``"cpu"``)."""
+    ``"cpu"``).  The arguments before ``device`` are the JAX package's, in
+    its order; ``n_devices`` takes ``None`` or 1 (several GPUs are ROADMAP
+    Queue 1 item 18), and ``verbose=False`` prints nothing."""
+    check_n_devices(n_devices)
     device = resolve_device(str(device or "cuda"))
     cfg, _, predict = load_model(model_path, cfg, device)
     cfg.id = cfg.id or cfg.gen_model_id()
@@ -119,8 +123,9 @@ def test(cfg: Config, model_path: str, img_path: str,
                                    + "_scale_" + str(scale or cfg.scale)))
         fid = res["extract"]["fid"]
         mp = res["megapixels"]
-        print(f"  {fid}: {mp:.1f} MP in {res['seconds']:.3f}s "
-              f"({mp / res['seconds']:.1f} MP/s) on {device}")
+        if verbose:
+            print(f"  {fid}: {mp:.1f} MP in {res['seconds']:.3f}s "
+                  f"({mp / res['seconds']:.1f} MP/s) on {device}")
 
         evaluator.load(res["mask_rgb"], fid, mask_true_path=mask_file,
                        scale=scale)
@@ -129,8 +134,9 @@ def test(cfg: Config, model_path: str, img_path: str,
             evaluator.evaluate()
             evaluator.save_metrics()
             m = evaluator.metrics.results
-            print(f"    F1 {m['f1']:.4f}  IoU {m['iou']:.4f}  "
-                  f"MCC {m['mcc']:.4f}")
+            if verbose:
+                print(f"    F1 {m['f1']:.4f}  IoU {m['iou']:.4f}  "
+                      f"MCC {m['mcc']:.4f}")
         if save_logits:
             evaluator.save_logits(res["probs"].cpu().numpy())
         results.append({"fid": fid, "seconds": res["seconds"],

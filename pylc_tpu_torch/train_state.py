@@ -13,7 +13,8 @@ here the step is eager PyTorch on the model's device:
     the schedule's value at k, as optax's count does;
   - ``make_train_step``: flip, normalize, forward (bf16 autocast when
     ``compute_dtype == "bfloat16"``), the fused multi-loss on kernels
-    K2a/K2b, backward, the global-norm clip, the optimizer update;
+    K2a/K2b (or the plain ``multi_loss`` for ``fused_loss`` "off"),
+    backward, the global-norm clip, the optimizer update;
   - ``make_eval_step`` and ``make_predict``: eval-mode forwards.
 
 Metrics come back as 0-d device tensors: nothing in a step waits for the
@@ -182,9 +183,10 @@ def make_train_step(cfg: Config, model: nn.Module,
     -> metrics {ce, dice, focal, total} as 0-d device tensors.
 
     ``img_u8`` [B, C, H, W] and ``mask_u8`` [B, H, W] are DB tiles on the
-    model's device.  The loss is always ``fused_multi_loss``: kernels
-    K2a/K2b for CUDA tensors, their plain versions for CPU tensors
-    (``fused_loss`` "off", the JAX package's plain-loss route, raises).
+    model's device.  ``fused_loss`` "auto" and "on" take
+    ``fused_multi_loss`` (kernels K2a/K2b for CUDA tensors, their plain
+    versions for CPU tensors; the kernels take at most 16 classes); "off"
+    takes the plain ``multi_loss`` on either device, as in the JAX package.
     The batch flip is drawn from ``generator`` (a CPU ``torch.Generator``,
     so the draw needs no device sync); ``flip=`` overrides the draw.
     Dropout draws from the device's default generator."""
@@ -192,11 +194,13 @@ def make_train_step(cfg: Config, model: nn.Module,
         raise NotImplementedError(
             "remat_backbone (activation checkpointing of the backbone) is "
             "not ported: ROADMAP Queue 1 item 11")
-    if cfg.fused_loss not in ("auto", "on"):
-        raise ValueError(
-            f"fused_loss={cfg.fused_loss!r}: the port's train step always "
-            "runs the fused loss (kernels K2a/K2b on the card); use 'auto' "
-            "or 'on'")
+    if cfg.fused_loss not in ("auto", "on", "off"):
+        raise ValueError(f"fused_loss={cfg.fused_loss!r}: 'auto', 'on' or "
+                         "'off'")
+
+    def plain_loss(logits, y, cw, lw):
+        return multi_loss(logits.float(), y, class_weights=cw, w=lw)
+    loss_fn = plain_loss if cfg.fused_loss == "off" else fused_multi_loss
     bf16 = _set_tf32(cfg)
     device = _device(model)
     lw = loss_weights(cfg)
@@ -213,7 +217,7 @@ def make_train_step(cfg: Config, model: nn.Module,
         x, y = prepare_batch(cfg, img.permute(0, 2, 3, 1), mask, flip)
         with torch.autocast(device.type, dtype=torch.bfloat16, enabled=bf16):
             logits = model(x.permute(0, 3, 1, 2))
-        total, aux = fused_multi_loss(logits, y, cw, lw)
+        total, aux = loss_fn(logits, y, cw, lw)
         optimizer.zero_grad(set_to_none=True)
         total.backward()
         clip_by_global_norm_(params, cfg.grad_clip)

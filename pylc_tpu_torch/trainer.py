@@ -24,7 +24,7 @@ from pylc_tpu_torch.checkpoint import Checkpoint, RunningLoss
 from pylc_tpu_torch.config import Config
 from pylc_tpu_torch.db.database import TileDB
 from pylc_tpu_torch.db.dataset import TileDataset
-from pylc_tpu_torch.device import resolve_device
+from pylc_tpu_torch.device import check_n_devices, resolve_device
 from pylc_tpu_torch.train_state import (
     init_model, make_eval_step, make_lr_schedule, make_optimizer,
     make_train_step,
@@ -69,13 +69,18 @@ def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
 
 
-def train(cfg: Config, db: Union[str, Dict], verbose: bool = True,
+def train(cfg: Config, db: Union[str, Dict], n_devices: Optional[int] = None,
+          verbose: bool = True, *,
           device: Union[str, torch.device, None] = None) -> dict:
-    """Run the training job on one device (default ``cuda``).
+    """Run the training job on one device (default ``cuda``; without a
+    card this raises unless the caller passes ``"cpu"``).
 
     ``db`` is an ``.h5`` path or an in-memory {'img', 'mask', 'meta'}
     dict (``img`` [N, C, tile, tile] and ``mask`` [N, tile, tile] uint8).
-    Returns a summary dict."""
+    ``n_devices`` takes ``None`` or 1, as in the JAX package's
+    ``train(cfg, db_path, n_devices, verbose)`` (several GPUs are ROADMAP
+    Queue 1 item 18).  Returns a summary dict."""
+    check_n_devices(n_devices)
     device = resolve_device(str(device or "cuda"))
     src = {"data": db} if isinstance(db, dict) else {"path": db}
     part = cfg.partition

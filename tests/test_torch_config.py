@@ -1,6 +1,7 @@
 """The port's own copies of the jax-free modules (config, CLI parser,
-reference-``.pth`` loader, host palette look-ups, evaluator) against the
-JAX package's, on the CPU.
+reference-``.pth`` loader, host palette look-ups, evaluator, the numpy
+utilities ``balance.py`` and ``synthetic.py``) against the JAX package's,
+on the CPU.
 
 The port imports nothing of ``pylc_tpu``; these tests import both and
 hold the copies equal: exactly (names, defaults, parsed configs, byte
@@ -248,6 +249,41 @@ def test_unported_modes_raise_with_their_roadmap_item(mode, tmp_path,
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         tcli.main(ARGVS[mode] + ["--device", "cpu"])
+
+
+# --------------------------------------------------------------------- #
+# numpy utilities copied whole: balance.py and synthetic.py
+# --------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("module,names", [
+    ("balance", ["jsd", "m2"]),
+    ("synthetic", ["value_noise", "textured_scene", "miou"]),
+])
+def test_copied_numpy_utilities_equal(module, names):
+    """Every function of the port's copy has the original's source, and
+    gives the original's output on seeded inputs."""
+    import importlib
+    import inspect
+    jmod = importlib.import_module(f"pylc_tpu.utils.{module}")
+    tmod = importlib.import_module(f"pylc_tpu_torch.utils.{module}")
+    public = {n for n, v in vars(jmod).items()
+              if inspect.isfunction(v) and v.__module__ == jmod.__name__}
+    assert public == set(names)
+    for name in names:
+        assert inspect.getsource(getattr(tmod, name)) == \
+            inspect.getsource(getattr(jmod, name)), name
+    if module == "balance":
+        p = np.random.default_rng(0).dirichlet(np.ones(9))
+        q = np.full(9, 1 / 9)
+        assert tmod.jsd(p, q) == jmod.jsd(p, q)
+        assert tmod.m2(p, 9) == jmod.m2(p, 9)
+    else:
+        a, b = (mod.textured_scene(40, 56, 9, np.random.default_rng(1))
+                for mod in (tmod, jmod))
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+        assert tmod.miou(a[0], (a[0] + 1) % 9, 9) == \
+            jmod.miou(b[0], (b[0] + 1) % 9, 9)
 
 
 # --------------------------------------------------------------------- #

@@ -1,7 +1,7 @@
 """The PyTorch port imports with the JAX package (``pylc_tpu``), jax,
 flax, optax and h5py blocked (the card's machine has no flax or h5py),
-trains from an in-memory DB there, and its sources import neither jax
-nor anything of ``pylc_tpu``."""
+extracts, augments and trains from an in-memory DB there, and its
+sources import neither jax nor anything of ``pylc_tpu``."""
 
 import os
 import re
@@ -35,6 +35,10 @@ MODULES = [
     "pylc_tpu_torch.checkpoint", "pylc_tpu_torch.trainer",
     "pylc_tpu_torch.tools", "pylc_tpu_torch.tools.time_kernels",
     "pylc_tpu_torch.tools.k1_variants",
+    "pylc_tpu_torch.utils.balance", "pylc_tpu_torch.utils.synthetic",
+    "pylc_tpu_torch.ops.palette", "pylc_tpu_torch.ops.profile",
+    "pylc_tpu_torch.ops.augment_ops", "pylc_tpu_torch.extract",
+    "pylc_tpu_torch.augment",
 ]
 BLOCKED = ("pylc_tpu", "jax", "jaxlib", "flax", "optax", "h5py")
 
@@ -119,3 +123,48 @@ def test_in_memory_train_runs_without_jax_flax_h5py(tmp_path):
                          timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "ok 4"
+
+
+def test_in_memory_data_path_runs_without_jax_flax_h5py(tmp_path):
+    """The card's machine's situation for the data path: two seeded
+    photos and masks on disk through ``Extractor`` into an in-memory DB,
+    ``Augmentor`` on it, and one epoch of ``trainer.train`` on the
+    result (a small U-Net on 64 px tiles, on the CPU), with jax, flax and
+    h5py absent."""
+    code = (
+        "import sys\n"
+        f"for m in {BLOCKED!r}:\n"
+        "    sys.modules[m] = None\n"
+        "import os, cv2, numpy as np, torch\n"
+        "torch.set_num_threads(1)\n"
+        "from pylc_tpu_torch.augment import Augmentor\n"
+        "from pylc_tpu_torch.config import Config\n"
+        "from pylc_tpu_torch.extract import Extractor\n"
+        "from pylc_tpu_torch.trainer import train\n"
+        "from pylc_tpu_torch.utils.synthetic import textured_scene\n"
+        "cfg = Config().replace(tile_size=64, stride=64, batch_size=2,\n"
+        "                       n_epochs=1, compute_dtype='float32',\n"
+        "                       save_dir='save', arch='unet', unet_depth=3,\n"
+        "                       unet_wf=3, input_size=64, output_size=24)\n"
+        "pal = np.asarray(cfg.palette_rgb, np.uint8)\n"
+        "rng = np.random.default_rng(0)\n"
+        "for d in ('img', 'mask'):\n"
+        "    os.makedirs(d)\n"
+        "for i in range(2):\n"
+        "    true, photo, _ = textured_scene(128, 192, 9, rng)\n"
+        "    cv2.imwrite(f'img/p{i}.jpg', photo[..., ::-1])\n"
+        "    cv2.imwrite(f'mask/p{i}.png', pal[true][..., ::-1])\n"
+        "ex = Extractor(cfg, 'cpu').load('img', 'mask')\n"
+        "db = ex.extract(verbose=False).coshuffle().profile().get_data()\n"
+        "aug = Augmentor(cfg, 'cpu').load(db).optimize().oversample()\n"
+        "data = aug.get_data().data\n"
+        "assert len(data['img']) == 12 + aug.rates.sum() > 12\n"
+        "s = train(cfg, data, None, False, device='cpu')\n"
+        f"assert not [m for m in {BLOCKED!r} if sys.modules.get(m)]\n"
+        "print('ok', s['steps'] > 0)\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok True"

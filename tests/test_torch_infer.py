@@ -260,8 +260,10 @@ def test_cli_refuses_missing_card_and_unported_modes(weights, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(["test", "-l", pth, "-i", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["profile", "--db", "x.h5", "--device", "cpu"])
+    for mode in (["export", "-l", pth, "--size", "64x64"],
+                 ["serve", "-l", pth]):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            main(mode + ["--device", "cpu"])
     for flag in (["--n_devices", "2"], ["--multihost"]):
         with pytest.raises(NotImplementedError, match="item 18"):
             main(["train", "--db", "x.h5", "--device", "cpu", *flag])

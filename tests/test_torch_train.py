@@ -416,14 +416,48 @@ def test_remat_backbone_is_not_ported():
                         sched)
 
 
-def test_fused_loss_off_is_refused():
-    """The train step always runs the fused loss; the JAX package's
-    plain-loss route ("off") is refused rather than taken."""
-    model = torch.nn.Linear(1, 1)
-    opt, sched = make_optimizer(Config(), model, 1)
-    with pytest.raises(ValueError, match="fused loss"):
-        make_train_step(Config().replace(fused_loss="off"), model, opt,
-                        sched)
+def test_fused_loss_off_step_matches_jax(jax_init, monkeypatch):
+    """``fused_loss="off"`` takes the plain ``multi_loss`` in both
+    packages (the fused loss is not called): one step from the same
+    weights and batch, held as ``test_adamw_steps_match_jax`` holds the
+    fused steps (metrics at METRIC_RTOL, every parameter within f32's
+    noise floor of JAX's)."""
+    from pylc_tpu_torch import train_state
+
+    def refuse(*args):
+        raise AssertionError("fused_loss='off' ran the fused loss")
+    monkeypatch.setattr(train_state, "fused_multi_loss", refuse)
+    cfg, state, params, stats = jax_init
+    cfg = cfg.replace(fused_loss="off")
+    jstep = jax_make_train_step(cfg, jax_build_model(cfg, train=True))
+    steps, models = [], []
+    for dtype in (torch.float32, torch.float64):
+        model = _port_model(cfg, params, stats).to(dtype)
+        opt, sched = make_optimizer(cfg, model, SPE)
+        wrapped = model if dtype == torch.float32 else _InF64(model)
+        steps.append(make_train_step(cfg, wrapped, opt, sched))
+        models.append(model)
+    # a fresh step counter: the ``trained`` fixture's steps took the
+    # initial state's as a donated buffer
+    jstate = state.replace(step=jnp.zeros((), jnp.int32),
+                           params=_jax_tree(params),
+                           batch_stats=_jax_tree(stats),
+                           opt_state=_jax_tree(_np_tree(state.opt_state)))
+    img, mask = _batch(100)
+    key = jax.random.PRNGKey(STEP_KEYS[0])
+    with fnn.intercept_methods(_no_dropout):
+        jstate, jm = jstep(jstate, jnp.asarray(img), jnp.asarray(mask), key)
+    m = steps[0](torch.from_numpy(img), torch.from_numpy(mask),
+                 flip=_flip_of(key))
+    m64 = steps[1](torch.from_numpy(img), torch.from_numpy(mask),
+                   flip=_flip_of(key))
+    _assert_metrics_close(m, jm, rtol=METRIC_RTOL)
+    want = state_dict_from_jax(_np_tree(jstate.params),
+                               _np_tree(jstate.batch_stats))
+    keys = [k for k in want
+            if not k.endswith(("running_mean", "running_var"))]
+    _assert_within_noise(models[0].state_dict(), models[1].state_dict(),
+                         want, keys, "params after one 'off' step")
 
 
 def test_unet_target_crop_passes_the_loss_kernels_check():

@@ -27,6 +27,7 @@ torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TILE, N_TILES, BATCH = 32, 10, 2
+UNET = dict(unet_depth=3, unet_wf=3, input_size=64, output_size=24)
 
 
 def _cfg(tmp, **kw):
@@ -217,6 +218,71 @@ def test_trained_pth_loads_in_both_testers(trained, tmp_path):
     assert agree >= 0.999, agree
 
 
+def test_train_and_test_take_the_jax_arguments():
+    """``trainer.train`` and ``tester.test`` take the JAX package's
+    arguments in its order (a third positional argument of ``train`` is
+    the device count in both), with ``device`` keyword-only after them."""
+    import inspect
+    from pylc_tpu import tester as jax_tester
+    from pylc_tpu import trainer as jax_trainer
+    from pylc_tpu_torch import tester as port_tester
+    from pylc_tpu_torch import trainer as port_trainer
+    for port, ref in ((port_trainer.train, jax_trainer.train),
+                      (port_tester.test, jax_tester.test)):
+        got = list(inspect.signature(port).parameters.values())
+        want = list(inspect.signature(ref).parameters.values())
+        # the port's ``db`` is the JAX package's ``db_path``, or a dict
+        assert [(p.name, p.default) for p in got[:-1]] == \
+            [(p.name.replace("db_path", "db"), p.default) for p in want]
+        assert got[-1].name == "device"
+        assert got[-1].kind is inspect.Parameter.KEYWORD_ONLY
+
+
+def test_train_takes_n_devices_positionally(tmp_path, capsys):
+    """``train(cfg, db, None, False, device="cpu")`` runs and prints
+    nothing; ``n_devices`` 1 runs too; a device count other than 1 raises,
+    naming item 18.  A small U-Net on an in-memory DB (6 tiles of 64 px:
+    2 steps)."""
+    from pylc_tpu_torch.config import Config as PortConfig
+    cfg = PortConfig().replace(tile_size=64, batch_size=BATCH, n_epochs=1,
+                               compute_dtype="float32", arch="unet",
+                               save_dir=str(tmp_path), **UNET)
+    imgs, masks = _tiles(6, 64)
+    db = {"img": imgs, "mask": masks, "meta": cfg.replace(id="mem").to_meta()}
+    assert train(cfg, db, None, False, device="cpu")["steps"] == 2
+    assert capsys.readouterr().out == ""
+    assert train(cfg, db, 1, False, device="cpu")["steps"] == 2
+    for n in (2, 8):
+        with pytest.raises(NotImplementedError, match="item 18"):
+            train(cfg, db, n, device="cpu")
+
+
+def test_tester_takes_verbose_and_n_devices(trained, tmp_path, capsys):
+    """``tester.test(..., verbose=False, n_devices=1)`` segments and
+    prints nothing; ``verbose=True`` prints the photo's line and its
+    metrics; ``n_devices=2`` raises, naming item 18."""
+    from pylc_tpu_torch.tester import test as port_test
+    cfg, summary = trained
+    pth = os.path.join(cfg.save_dir, summary["model_id"],
+                       summary["model_id"] + ".pth")
+    rng = np.random.default_rng(5)
+    photo, mask = str(tmp_path / "p.jpg"), str(tmp_path / "p.png")
+    cv2.imwrite(photo, rng.integers(0, 256, (64, 96, 3), dtype=np.uint8))
+    pal = np.asarray(cfg.palette_rgb, np.uint8)
+    cv2.imwrite(mask, pal[rng.integers(0, 9, (64, 96))][..., ::-1])
+    out = cfg.replace(output_dir=str(tmp_path / "out"))
+    capsys.readouterr()
+    (res,) = port_test(out, pth, photo, mask, 1.0, False, False, False,
+                       False, 1, device="cpu")
+    assert capsys.readouterr().out == ""
+    assert 0 <= res["metrics"]["f1"] <= 1
+    port_test(out, pth, photo, mask, 1.0, verbose=True, device="cpu")
+    printed = capsys.readouterr().out
+    assert "MP/s" in printed and "F1" in printed
+    with pytest.raises(NotImplementedError, match="item 18"):
+        port_test(out, pth, photo, n_devices=2, device="cpu")
+
+
 def test_train_cli_runs_on_the_cpu(tmp_path, h5_db):
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run(
@@ -290,9 +356,6 @@ def test_trainer_loads_the_backbones_encoder(tmp_path, monkeypatch):
     for k in sd:  # lr 0: the weights are the file's still
         if not k.endswith(("running_mean", "running_var")):
             assert torch.equal(got[k], sd[k]), k
-
-
-UNET = dict(unet_depth=3, unet_wf=3, input_size=64, output_size=24)
 
 
 @pytest.mark.parametrize("kw", [
