@@ -77,6 +77,23 @@ Phases, in order; any failed check raises, and the script exits non-zero:
            through ``tester.load_model`` and segments a 1024x1024 photo;
            then 10 timed steps on one fixed batch, whose loss must fall,
            one of them under ``torch.profiler``.
+  [remat]  ``remat_backbone``: the f32 remat step of DeepLabV3+/ResNet101
+           against the plain one (TF32 off, cudnn.deterministic, batch 2:
+           losses and running statistics within REMAT_RTOL, every gradient
+           within it plus a second plain run's distance); the bf16 train
+           step at 512 px (AdamW, the fused loss) with remat off and on in
+           turns at batch 8 and 32: ms per step, peak memory, a profiled
+           step's kernel launches and device time, K2a and K2b once per
+           step; one step each way of DeepLab on Xception, MobileNetV2 and
+           DRN-D-54 at batch 8 with their peak memory.
+  [resume] a run carried across the JAX package's checkpoint: 3 bf16
+           steps of DeepLabV3+/ResNet101 (AdamW, head_lr_mult 10), its
+           model, optimizer and schedule through a ``checkpoint.ckpt`` in
+           the JAX package's layout into a fresh model and optimizer (equal
+           bit for bit), then 2 more steps in f32 with TF32 off on the
+           resumed run, the run and a torch-native copy of it (the resumed
+           run within 4 times the copy's distance from the run), K2a and
+           K2b once per step.
   [multi]  several devices and ranks, on the one card: [slice]'s
            DeepLabV3+/ResNet101 weights and 3584x2048 photo with the CRF
            through ``Segmenter(mesh=Mesh([cuda:0] * n))`` for n = 2, 3, 4
@@ -147,6 +164,7 @@ and exits non-zero.
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import subprocess
@@ -258,6 +276,29 @@ MULTI_UPDATE_RTOL = 1e-3       # each parameter's update after MULTI_STEPS,
 MULTI_BF16_STEPS = 5           # timed bf16 steps per rank after a warm-up
 MULTI_TRAIN_TILES = 20         # trainer.train on the ranks: 16 train, 4 valid
 SERVE_WARM = 5                 # [serve]: warm POSTs after the first
+REMAT_BATCHES = (8, 32)        # [remat]: the train step with and without
+REMAT_STEPS = 5                # timed steps per block, blocks off/on/on/off
+REMAT_BACKBONES = ("xception", "mobilenet", "drn")  # one step each way
+# A remat step replays the plain step's operations on the same inputs
+# (equality expected), but the bilinear upsample's backward adds with
+# atomics on the card, so two runs of the same step differ by rounding.
+# Each gradient is held within REMAT_RTOL of its norm plus the whole
+# gradient's, plus four times the distance of a second plain run; the
+# losses and the running statistics (forward only) within REMAT_RTOL.
+REMAT_RTOL = 1e-6
+RESUME_STEPS = (3, 2)  # [resume]: bf16 steps before the carry, f32 after
+# [resume]: the carried model, optimizer and schedule equal the run's bit for
+# bit.  The steps after it are not bit-reproducible on the card even with
+# cudnn.deterministic: the bilinear upsample's, the max-pool's and the
+# average pool's backwards add with atomics.  In bf16 the rounding carries
+# that into every tensor (on an H100: 0.24 of a bn3 bias's largest entry
+# after 2 steps), so the steps after the carry run in f32 with TF32 off.
+# The resumed run and a torch-native copy of the run (load_state_dict at
+# the carry) each step on beside it, and the resumed run's distance from
+# the run is held within 4 times the copy's, plus RESUME_RTOL of the run's
+# update over those steps (an optimizer that lost its moments moves every
+# parameter by about the lr).
+RESUME_RTOL = 1e-7
 ARTIFACT_PHOTOS = 5            # timed photos through the loaded artifact
 
 
@@ -1188,28 +1229,37 @@ def structured_tiles(rng, n: int, tile: int, cfg):
     return np.ascontiguousarray(img), mask.astype(np.uint8)
 
 
-def _profile_step(step, img, mask, gen, step_ms: float):
-    """One train step under torch.profiler: device time by kernel, and
-    the device's busy share of the profiled step and of an unprofiled
-    one (``step_ms``)."""
+def profiled(fn):
+    """``fn()`` once under torch.profiler -> (fn's result, its wall in ms,
+    its device events by device time, largest first, the launches they
+    count, their device ms).  The events are the CUDA ones (kernels and
+    copies) less the ranges of user annotations (the optimizer's step),
+    which span kernels already counted."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        step(img, mask, gen)
+        out = fn()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side events, less the ranges of user annotations (the
-    # optimizer's step), which span kernels already counted
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
-    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    log(f"[train] profiled step: {sum(e.count for e in kernels)} kernel "
-        f"launches, {busy_ms:.2f} ms of device time; profiled wall "
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    return (out, wall_ms, events, sum(e.count for e in events),
+            sum(e.self_device_time_total for e in events) / 1e3)
+
+
+def _profile_step(step, img, mask, gen, step_ms: float):
+    """One train step under torch.profiler: device time by kernel, and
+    the device's busy share of the profiled step and of an unprofiled
+    one (``step_ms``)."""
+    _, wall_ms, kernels, n_launches, busy_ms = profiled(
+        lambda: step(img, mask, gen))
+    log(f"[train] profiled step: {n_launches} kernel launches, "
+        f"{busy_ms:.2f} ms of device time; profiled wall "
         f"{wall_ms:.2f} ms; against the unprofiled median step "
         f"{step_ms:.2f} ms the idle share is {1 - busy_ms / step_ms:.3f}. "
         "Top kernels by device time:")
@@ -1320,6 +1370,322 @@ def phase_train(device, workdir):
     if not np.isfinite(totals).all() or not last < first:
         raise AssertionError(f"total loss did not fall: {totals}")
     _profile_step(step, img, mask, gen, step_ms)
+    return launches
+
+
+def _rel_errors(got, want):
+    """Per tensor ||got - want|| / (||want|| + the whole of want's
+    norm)."""
+    whole = float(torch.cat([v.double().flatten()
+                             for v in want.values()]).norm())
+    return {k: float((got[k].double() - v.double()).norm())
+            / (float(v.double().norm()) + whole) for k, v in want.items()}
+
+
+def _one_remat_step(cfg, sd, device, img, mask, remat):
+    """One AdamW step of a DeepLab from ``sd`` with the backbone's remat
+    on or off -> (metrics, clipped gradients, state_dict after)."""
+    from pylc_tpu_torch.models.registry import build_model
+    from pylc_tpu_torch.train_state import make_optimizer, make_train_step
+    model = build_model(cfg)
+    model.load_state_dict(sd)
+    _set_dropout_0(model)
+    model.backbone.remat = remat
+    model.to(device, memory_format=torch.channels_last)
+    opt, sched = make_optimizer(cfg, model, 1)
+    m = make_train_step(cfg, model, opt, sched)(img, mask, flip=True)
+    return ({k: float(v) for k, v in m.items()},
+            {n: p.grad.detach().clone() for n, p in model.named_parameters()},
+            {k: v.detach().clone() for k, v in model.state_dict().items()})
+
+
+def phase_remat(device, card):
+    """``remat_backbone`` on the card: the f32 remat step against the
+    plain one (TF32 off, cudnn.deterministic, batch 2, every bn3.weight x
+    RESIDUAL_GAIN, dropout 0); the bf16 train step of DeepLabV3+/ResNet101
+    at 512 px with AdamW and the fused loss, remat off and on in turns at
+    each of REMAT_BATCHES (ms per step, peak memory, one profiled step
+    each); one step each way of the other three backbones at batch 8.
+    Returns K2a's and K2b's launches over the remat steps."""
+    from pylc_tpu_torch.config import Config
+    from pylc_tpu_torch.ops.kernels.fused_loss import (
+        fused_loss_backward, fused_loss_forward)
+    from pylc_tpu_torch.train_state import (init_model, make_optimizer,
+                                            make_train_step)
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(41)
+
+    # f32: the remat step against the plain one, and a second plain run
+    cfg = Config().replace(compute_dtype="float32", batch_size=2)
+    model = init_model(cfg, seed=41)
+    with torch.no_grad():
+        for key, prm in model.named_parameters():
+            if key.endswith("bn3.weight"):
+                prm.mul_(RESIDUAL_GAIN)
+    sd = {k: v.clone() for k, v in model.state_dict().items()}
+    del model
+    img, mask = (torch.from_numpy(a).to(device) for a in structured_tiles(
+        rng, 2, cfg.tile_size, cfg))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        plain, remat, plain2 = (_one_remat_step(cfg, sd, device, img, mask, r)
+                                for r in (False, True, False))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    loss_err = max(abs(remat[0][k] - plain[0][k]) / abs(plain[0][k])
+                   for k in plain[0])
+    grad_err = _rel_errors(remat[1], plain[1])
+    grad_floor = _rel_errors(plain2[1], plain[1])
+    worst = max(grad_err, key=lambda k: grad_err[k] - 4 * grad_floor[k])
+    stats = [k for k in plain[2] if "running" in k]
+    stat_err = max(float((remat[2][k] - plain[2][k]).abs().max())
+                   / max(float(plain[2][k].abs().max()), 1e-30)
+                   for k in stats)
+    tracked = {int(v) for k, v in remat[2].items()
+               if k.endswith("num_batches_tracked")}
+    equal = sum(torch.equal(remat[1][k], plain[1][k]) for k in plain[1])
+    log(f"[remat] f32 step, remat against plain (DeepLabV3+/ResNet101, "
+        f"batch 2, TF32 off, cudnn.deterministic, bn3 x {RESIDUAL_GAIN}): "
+        f"losses {plain[0]['total']:.6f} / {remat[0]['total']:.6f}, worst "
+        f"rel diff {loss_err:.3e}; {equal} of {len(plain[1])} gradients bit-"
+        f"equal, worst {grad_err[worst]:.3e} of the norms ({worst}; a "
+        f"second plain run differs there by {grad_floor[worst]:.3e}, at "
+        f"most {max(grad_floor.values()):.3e}); {len(stats)} running "
+        f"statistics within {stat_err:.3e} of their largest entry; "
+        f"num_batches_tracked {sorted(tracked)} (limit {REMAT_RTOL:g}, "
+        "equality expected)")
+    if not loss_err <= REMAT_RTOL or not stat_err <= REMAT_RTOL \
+            or tracked != {1} or any(
+                grad_err[k] > REMAT_RTOL + 4 * grad_floor[k]
+                for k in grad_err):
+        raise AssertionError("the remat step disagrees with the plain step")
+    del plain, remat, plain2
+    torch.cuda.empty_cache()
+
+    # bf16 at REMAT_BATCHES, remat off and on in turns
+    cfg = Config()
+    model = init_model(cfg, seed=42).to(device,
+                                        memory_format=torch.channels_last)
+    opt, sched = make_optimizer(cfg, model, 1)
+    step = make_train_step(cfg, model, opt, sched)
+    gen = torch.Generator().manual_seed(43)
+    launches = [0, 0]
+    for B in REMAT_BATCHES:
+        img, mask = (torch.from_numpy(a).to(device) for a in
+                     structured_tiles(rng, B, cfg.tile_size, cfg))
+        for remat in (False, True):  # the first call of each shape
+            model.backbone.remat = remat
+            step(img, mask, gen)
+        ms = {False: [], True: []}
+        peak = {False: 0, True: 0}
+        for remat in (False, True, True, False):
+            model.backbone.remat = remat
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            fused_loss_forward.launches = fused_loss_backward.launches = 0
+            t, totals = timed_steps(step, img, mask, gen, REMAT_STEPS)
+            got = (fused_loss_forward.launches, fused_loss_backward.launches)
+            if got != (REMAT_STEPS, REMAT_STEPS) or \
+                    not np.isfinite(totals).all():
+                raise AssertionError(f"[remat] batch {B} remat {remat}: K2 "
+                                     f"launches {got}, losses {totals}")
+            if remat:
+                launches = [a + b for a, b in zip(launches, got)]
+            ms[remat] += t
+            peak[remat] = max(peak[remat],
+                              torch.cuda.max_memory_allocated(device))
+        prof = {}
+        for remat in (False, True):
+            model.backbone.remat = remat
+            prof[remat] = profiled(lambda: step(img, mask, gen))[3:]
+        med = {r: float(np.median(v)) for r, v in ms.items()}
+        for r, name in ((False, "none"), (True, "remat")):
+            log(f"[remat] batch {B}, {name} ({card}): {2 * REMAT_STEPS} "
+                f"steps in two blocks, ms {[round(v, 2) for v in ms[r]]}, "
+                f"median {med[r]:.3f} ms = {B * 1e3 / med[r]:.2f} tiles/s; "
+                f"peak {peak[r] / 2 ** 30:.3f} GiB; profiled step "
+                f"{prof[r][0]} kernel launches, {prof[r][1]:.2f} ms of "
+                "device time; K2a/K2b once per step")
+        log(f"[remat] batch {B}: remat / none = {med[True] / med[False]:.3f}"
+            f" in ms per step, {peak[True] / peak[False]:.3f} in peak "
+            f"memory, {prof[True][1] / prof[False][1]:.3f} in device time")
+    del model, opt, step
+    torch.cuda.empty_cache()
+
+    # the other backbones, one step each way at batch 8: the remat step's
+    # loss comes from its first forward, before any recompute, so it must
+    # equal the plain step's bit for bit (cudnn.deterministic: one forward
+    # algorithm each way)
+    torch.backends.cudnn.deterministic = True
+    for name in REMAT_BACKBONES:
+        bcfg = Config().replace(backbone=name)
+        model = init_model(bcfg, seed=44)
+        _set_dropout_0(model)  # so that both steps see one forward
+        sd = {k: v.clone() for k, v in model.state_dict().items()}
+        img, mask = (torch.from_numpy(a).to(device) for a in
+                     structured_tiles(rng, bcfg.batch_size, bcfg.tile_size,
+                                      bcfg))
+        res = {}
+        for remat in (False, True):
+            model.load_state_dict(sd)
+            model.backbone.remat = remat
+            model.to(device, memory_format=torch.channels_last)
+            opt, sched = make_optimizer(bcfg, model, 1)
+            step = make_train_step(bcfg, model, opt, sched)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            fused_loss_forward.launches = fused_loss_backward.launches = 0
+            total = float(step(img, mask, flip=True)["total"])
+            got = (fused_loss_forward.launches, fused_loss_backward.launches)
+            res[remat] = (total, torch.cuda.max_memory_allocated(device))
+            if got != (1, 1) or not np.isfinite(total):
+                raise AssertionError(f"[remat] {name}: K2 {got}, {total}")
+            if remat:
+                launches = [a + b for a, b in zip(launches, got)]
+            del opt, step
+        log(f"[remat] DeepLab/{name}, batch {bcfg.batch_size}, bf16, one "
+            f"step each way: total loss {res[False][0]:.5f} / "
+            f"{res[True][0]:.5f}; peak {res[False][1] / 2 ** 30:.3f} / "
+            f"{res[True][1] / 2 ** 30:.3f} GiB (remat / none = "
+            f"{res[True][1] / res[False][1]:.3f}); losses equal required")
+        if res[True][0] != res[False][0]:
+            raise AssertionError(f"[remat] {name}: the remat step's loss "
+                                 f"{res[True][0]!r} is not the plain "
+                                 f"step's {res[False][0]!r}")
+        del model
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = deterministic
+    log(f"[remat] {time.perf_counter() - t_phase:.1f} s")
+    return tuple(launches)
+
+
+def _carried_differences(src, dst):
+    """What of (model, optimizer, scheduler) ``dst`` is not ``src``'s
+    bit for bit: state_dict entries, optimizer state per parameter (by
+    name), the schedule's position and each group's lr."""
+    (ma, oa, sa), (mb, ob, sb) = src, dst
+    a, b = ma.state_dict(), mb.state_dict()
+    bad = [k for k in a if not torch.equal(a[k], b[k])]
+    for (name, pa), (_, pb) in zip(ma.named_parameters(),
+                                   mb.named_parameters()):
+        for key, v in oa.state[pa].items():
+            if not torch.equal(v.cpu(), ob.state[pb][key].cpu()):
+                bad.append(f"{name} {key}")
+    if sa.last_epoch != sb.last_epoch or \
+            [g["lr"] for g in oa.param_groups] != \
+            [g["lr"] for g in ob.param_groups]:
+        bad.append("the schedule")
+    return bad
+
+
+def phase_resume(device, workdir):
+    """A run carried across the JAX package's checkpoint: RESUME_STEPS[0]
+    bf16 steps of DeepLabV3+/ResNet101 (AdamW, head_lr_mult 10, two steps
+    per epoch, dropout 0, cudnn.deterministic), then the model, optimizer
+    and schedule through a ``checkpoint.ckpt`` in the JAX package's layout
+    (``convert.save_ckpt_checkpoint``, ``load_ckpt_checkpoint``) into a
+    fresh model and optimizer on the card: equal bit for bit.  Then
+    RESUME_STEPS[1] more steps in f32 with TF32 off on it, on the run and
+    on a torch-native copy of the run.  Returns K2a's and K2b's launches in
+    the resumed run."""
+    from pylc_tpu_torch import convert
+    from pylc_tpu_torch.config import Config
+    from pylc_tpu_torch.ops.kernels.fused_loss import (
+        fused_loss_backward, fused_loss_forward)
+    from pylc_tpu_torch.train_state import (init_model, make_optimizer,
+                                            make_train_step)
+    t_phase = time.perf_counter()
+    cfg = Config().replace(head_lr_mult=10.0)
+    n_before, n_after = RESUME_STEPS
+    rng = np.random.default_rng(51)
+    batches = [tuple(torch.from_numpy(a).to(device) for a in
+                     structured_tiles(rng, cfg.batch_size, cfg.tile_size,
+                                      cfg))
+               for _ in range(n_before + n_after)]
+    flips = [bool(f) for f in rng.integers(0, 2, len(batches))]
+
+    def run(seed):
+        model = init_model(cfg, seed=seed)
+        _set_dropout_0(model)
+        model.to(device, memory_format=torch.channels_last)
+        return (model, *make_optimizer(cfg, model, 2))
+
+    def steps(step, ids):
+        fused_loss_forward.launches = fused_loss_backward.launches = 0
+        totals = [float(step(*batches[i], flip=flips[i])["total"])
+                  for i in ids]
+        return totals, (fused_loss_forward.launches,
+                        fused_loss_backward.launches)
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        model, opt, sched = run(52)
+        before, got = steps(make_train_step(cfg, model, opt, sched),
+                            range(n_before))
+        if got != (n_before, n_before):
+            raise AssertionError(f"[resume] K2 launches {got}")
+        t0 = time.perf_counter()
+        fresh, opt2, sched2 = run(53)
+        path = os.path.join(workdir, "checkpoint.ckpt")
+        convert.save_ckpt_checkpoint(path, cfg, model, opt, sched, 1,
+                                     n_before)
+        info = convert.load_ckpt_checkpoint(path, cfg, fresh, opt2, sched2)
+        got_at = (info["epoch"], info["iter"])
+        carry_s = time.perf_counter() - t0
+        differ = _carried_differences((model, opt, sched),
+                                      (fresh, opt2, sched2))
+        log(f"[resume] DeepLabV3+/ResNet101, bf16, AdamW, head_lr_mult "
+            f"{cfg.head_lr_mult:g}: {n_before} steps (total loss "
+            f"{[round(v, 4) for v in before]}), carried through "
+            f"checkpoint.ckpt ({os.path.getsize(path) / 2 ** 20:.1f} MiB, "
+            f"the JAX package's msgpack layout) in {carry_s:.2f} s into a "
+            f"fresh model and optimizer at (epoch, iter) {got_at}: "
+            f"{len(differ)} of the weights, statistics, "
+            f"moments, steps and lrs differ from the run's "
+            f"{differ[:3]} (equality required)")
+        if differ or got_at != (1, n_before):
+            raise AssertionError("[resume] the carry changed the run")
+        twin, opt3, sched3 = run(54)
+        twin.load_state_dict(model.state_dict())
+        # a deep copy: load_state_dict keeps the given tensors when their
+        # device and dtype fit, and the run's steps move them in place
+        opt3.load_state_dict(copy.deepcopy(opt.state_dict()))
+        sched3.load_state_dict(sched.state_dict())
+        at_carry = {k: v.clone() for k, v in model.state_dict().items()}
+        # f32, TF32 off (make_train_step sets it, after the bf16 steps'
+        # builds): the steps' rounding differs only by the atomics
+        f32 = cfg.replace(compute_dtype="float32")
+        step, step2, step3 = (make_train_step(f32, *mos) for mos in (
+            (model, opt, sched), (fresh, opt2, sched2), (twin, opt3, sched3)))
+        after = range(n_before, n_before + n_after)
+        cont, _ = steps(step, after)
+        resumed, launches = steps(step2, after)
+        copied, _ = steps(step3, after)
+    finally:
+        torch.cuda.synchronize(device)
+        torch.backends.cudnn.deterministic = deterministic
+    if launches != (n_after, n_after):
+        raise AssertionError(f"[resume] resumed run's K2 launches {launches}")
+    ref = model.state_dict()
+    keys = [k for k, v in ref.items() if v.is_floating_point()]
+
+    def dist(sd):
+        return float(torch.cat([(sd[k].double() - ref[k].double()).flatten()
+                                for k in keys]).norm())
+    d_resumed, d_copy = dist(fresh.state_dict()), dist(twin.state_dict())
+    update = dist(at_carry)
+    log(f"[resume] then {n_after} f32 steps (TF32 off) on the run, the "
+        f"resumed run and the copy: total loss "
+        f"{[round(v, 5) for v in cont]} / {[round(v, 5) for v in resumed]}"
+        f" / {[round(v, 5) for v in copied]}"
+        f"; distance from the run {d_resumed:.4e} (resumed) and "
+        f"{d_copy:.4e} (copy), the run's update {update:.4e} (limit 4 x the "
+        f"copy's + {RESUME_RTOL:g} x the update); K2a/K2b launches in the "
+        f"resumed run {launches}; {time.perf_counter() - t_phase:.1f} s")
+    if not d_resumed <= 4 * d_copy + RESUME_RTOL * update:
+        raise AssertionError("the resumed run left the run it came from")
     return launches
 
 
@@ -1727,20 +2093,7 @@ def device_share(tag, fn):
     """``fn()`` once under torch.profiler: its wall, the device time of
     its CUDA events (kernels and copies) and the busy share, and the top
     five events.  Returns fn's result."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        out = fn()
-        torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA
-              and not getattr(e, "is_user_annotation", False)]
-    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    out, wall_ms, events, _, busy_ms = profiled(fn)
     log(f"{tag} profiled: wall {wall_ms:.1f} ms, device {busy_ms:.2f} ms, "
         f"busy share {busy_ms / wall_ms:.3f}; top: " + "; ".join(
             f"{e.self_device_time_total / 1e3:.2f} ms x{e.count} "
@@ -1947,31 +2300,20 @@ def forward_times(tag, cfg, model, device):
     on one batch of 16 tiles: ms per batch by CUDA events, and under
     ``torch.profiler`` the launches and the device time, in all and in
     convolutions and GEMMs."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from pylc_tpu_torch.train_state import make_predict
     predict = make_predict(cfg, model)
     T = cfg.tile_size
     tiles = torch.from_numpy(np.random.default_rng(8).integers(
         0, 255, (16, T, T, cfg.ch), dtype=np.uint8)).to(device)
     ms = cuda_ms(lambda: predict(tiles), 3)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        predict(tiles)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
-    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    _, _, kernels, n_launches, busy = profiled(lambda: predict(tiles))
     conv = sum(e.self_device_time_total for e in kernels
                if any(m in e.key.lower() for m in CONV_KERNEL_MARKS)) / 1e3
     top = "; ".join(f"{e.self_device_time_total / 1e3:.2f} ms x{e.count} "
                     f"{e.key[:60]}" for e in kernels[:3])
     log(f"{tag} {cfg.compute_dtype} forward of 16 tiles of {T} px: "
-        f"{ms:.2f} ms per batch; profiled: {sum(e.count for e in kernels)} "
-        f"launches, {busy:.2f} ms of device time, {conv:.2f} ms of it in "
+        f"{ms:.2f} ms per batch; profiled: {n_launches} launches, "
+        f"{busy:.2f} ms of device time, {conv:.2f} ms of it in "
         f"convolutions and GEMMs (share {conv / busy:.3f}), idle share "
         f"of the unprofiled batch {max(0.0, 1 - busy / ms):.3f}; top: {top}")
 
@@ -2144,6 +2486,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=build_root) as workdir:
         k2a_launches, k2b_launches = phase_train(device, workdir)
     torch.cuda.empty_cache()
+    remat_launches = phase_remat(device, card)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=build_root) as workdir:
+        resume_launches = phase_resume(device, workdir)
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(dir=build_root) as workdir:
         t0 = time.perf_counter()
         banded_launches = phase_multi_photo(device, workdir)
@@ -2162,7 +2509,9 @@ def main() -> int:
                 "serve": serve_launches, "artifact": artifact_launches,
                 "wide_photo": wide_launches, "banded_photo": banded_launches,
                 **{k: v for k, v in zoo.items() if k.endswith("_photo")}}
-    k2_paths = [{"train": n, "data": data_launches[i],
+    k2_paths = [{"train": n, "remat_train": remat_launches[i],
+                 "resume_train": resume_launches[i],
+                 "data": data_launches[i],
                  "ranks_train": ranks_launches[i],
                  "wide_train": wide_train[i],
                  **{k: v[i] for k, v in zoo.items() if k.endswith("_train")}}

@@ -5,7 +5,14 @@ with the same ``losses.json``.  ``Checkpoint`` keeps the atomic writes
 (tmp + ``os.replace``) but writes torch files:
 
   - ``checkpoint.pth``: {epoch, iter, model, optimizer, scheduler, meta},
-    written at every validation, for ``--resume``;
+    written at every validation, for ``--resume``.  ``--resume`` also
+    takes the JAX package's resumable ``checkpoint.ckpt`` in the model
+    directory (``convert.load_ckpt_checkpoint``: the weights, the
+    optimizer's moments and step counts, the schedule's position), so a
+    run the JAX package started carries on here.  Where both files are
+    there, the one written last is the run's newest state and is taken.
+    A run without ``--resume`` removes only ``checkpoint.pth``, as the JAX
+    package's removes only its own file;
   - ``<model_id>.pth``: {'model': state_dict, 'meta': cfg.to_meta()}, the
     best model by validation Dice.  For a DeepLab on ResNet101 or Xception
     this is the reference schema, which both the port's and the JAX
@@ -25,6 +32,7 @@ import torch
 import torch.nn as nn
 
 from pylc_tpu_torch.config import Config
+from pylc_tpu_torch.convert import load_ckpt_checkpoint
 
 
 def _atomic_write(path: str, data: bytes):
@@ -51,6 +59,8 @@ class Checkpoint:
         self.model_dir = os.path.join(save_dir, model_id)
         os.makedirs(self.model_dir, exist_ok=True)
         self.checkpoint_file = os.path.join(self.model_dir, "checkpoint.pth")
+        self.jax_checkpoint_file = os.path.join(self.model_dir,
+                                                "checkpoint.ckpt")
         self.model_file = os.path.join(self.model_dir, model_id + ".pth")
 
     def save(self, model: nn.Module, optimizer: torch.optim.Optimizer,
@@ -66,13 +76,21 @@ class Checkpoint:
             _atomic_save({"model": weights, "meta": meta}, self.model_file)
 
     def load(self, model: nn.Module, optimizer: torch.optim.Optimizer,
-             scheduler: torch.optim.lr_scheduler.LRScheduler
+             scheduler: torch.optim.lr_scheduler.LRScheduler, cfg: Config
              ) -> Optional[Dict[str, Any]]:
-        """Restore a checkpoint into ``model``, ``optimizer`` and
-        ``scheduler`` in place.  Returns {'epoch', 'iter', 'meta'}, or
-        None if there is no checkpoint."""
-        if not os.path.exists(self.checkpoint_file):
+        """Restore the newer of ``checkpoint.pth`` and the JAX package's
+        ``checkpoint.ckpt`` (by modification time; ``cfg`` is the model's
+        and the optimizer's config) into ``model``, ``optimizer`` and
+        ``scheduler`` in place.  Returns {'epoch', 'iter', 'meta', 'file'},
+        or None if there is neither."""
+        found = [p for p in (self.checkpoint_file, self.jax_checkpoint_file)
+                 if os.path.exists(p)]
+        if not found:
             return None
+        if max(found, key=os.path.getmtime) == self.jax_checkpoint_file:
+            return dict(load_ckpt_checkpoint(
+                self.jax_checkpoint_file, cfg, model, optimizer, scheduler),
+                file=self.jax_checkpoint_file)
         device = next(model.parameters()).device
         payload = torch.load(self.checkpoint_file, map_location=device,
                              weights_only=False)
@@ -80,9 +98,13 @@ class Checkpoint:
         optimizer.load_state_dict(payload["optimizer"])
         scheduler.load_state_dict(payload["scheduler"])
         return {"epoch": payload["epoch"], "iter": payload["iter"],
-                "meta": payload["meta"]}
+                "meta": payload["meta"], "file": self.checkpoint_file}
 
     def reset(self):
+        """A run that does not resume removes its own resumable state.  The
+        JAX package's ``checkpoint.ckpt`` stays, as that package's reset
+        leaves ``checkpoint.pth``; this run's first ``save`` is newer, so
+        a later ``--resume`` takes this run's file."""
         if os.path.exists(self.checkpoint_file):
             os.remove(self.checkpoint_file)
 

@@ -251,8 +251,8 @@ class Config:
     # torch.Generator and ignores it
     rng_impl: str = "rbg"
 
-    # rematerialize backbone blocks in training (not ported: the train
-    # step raises when it is set)
+    # rematerialize a DeepLab's backbone blocks in training
+    # (torch.utils.checkpoint per block, models/deeplab.py); no CLI flag
     remat_backbone: bool = False
 
     # choice lists (reference config.py:211-222; 'syncbatch' typo fixed)

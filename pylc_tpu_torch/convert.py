@@ -16,10 +16,25 @@ scale/bias/mean/var <-> weight/bias/running_mean/running_var).  For the
 two backbones the reference builds (ResNet101, Xception) the first equals
 the JAX package's exporter (``export_deeplab_pth``) without the file.
 
+``optimizer_from_jax`` and ``optimizer_to_jax`` map the optimizer state
+both ways: optax's state of the JAX ``make_optimizer`` (as flax's
+``to_state_dict`` gives it: nested dicts with numpy leaves, ``{}`` for the
+empty states and the masked subtrees) <-> a torch optimizer and its
+``LambdaLR`` as ``train_state.make_optimizer`` makes them.  AdamW's
+``mu``/``nu`` are ``exp_avg``/``exp_avg_sq`` and its ``count`` the
+parameters' ``step``; SGD's ``trace`` is ``momentum_buffer``; the
+schedule's ``count`` is ``LambdaLR.last_epoch``.  Each moment takes the
+layout moves of its parameter, and the two parameter groups of
+``head_lr_mult`` are optax's ``backbone`` and ``head`` labels.
+
+``checkpoint_from_jax`` and ``checkpoint_to_jax`` carry a whole resumable
+payload, {epoch, iter, params, batch_stats, opt_state}, on top of them.
 ``load_ckpt_model`` and ``save_ckpt_model`` read and write the JAX
 package's best-model file: flax's msgpack of {params, batch_stats} beside
-a ``.meta`` JSON.  ``load_*_imagenet`` put an ImageNet encoder into a
-DeepLab's backbone.
+a ``.meta`` JSON; ``load_ckpt_checkpoint`` and ``save_ckpt_checkpoint``
+its resumable ``checkpoint.ckpt``.  Only the file functions need the
+``msgpack`` package.
+``load_*_imagenet`` put an ImageNet encoder into a DeepLab's backbone.
 """
 
 from __future__ import annotations
@@ -247,6 +262,24 @@ def _tensor(a) -> torch.Tensor:
     return torch.tensor(np.asarray(a))
 
 
+def _kernel_from_jax(k: np.ndarray, path: Tuple[str, ...]) -> np.ndarray:
+    """A flax kernel (HWIO) -> the torch weight's layout."""
+    if _is_transposed(path):
+        # flax's ConvTranspose does not flip its kernel
+        # (transpose_kernel=False); torch's ConvTranspose2d is a
+        # convolution's gradient and does: HWIO -> [I, O, H, W] with both
+        # spatial axes mirrored
+        return np.ascontiguousarray(k[::-1, ::-1].transpose(2, 3, 0, 1))
+    return k.transpose(3, 2, 0, 1)  # HWIO -> OIHW, depthwise too
+
+
+def _kernel_to_jax(w: np.ndarray, path: Tuple[str, ...]) -> np.ndarray:
+    """``_kernel_from_jax`` backwards."""
+    if _is_transposed(path):
+        return w.transpose(2, 3, 0, 1)[::-1, ::-1]
+    return w.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+
+
 def _state_dict(mods: ModuleMap, params: Mapping, stats: Mapping
                 ) -> "OrderedDict[str, torch.Tensor]":
     sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
@@ -255,16 +288,8 @@ def _state_dict(mods: ModuleMap, params: Mapping, stats: Mapping
         if not p:
             raise KeyError(f"no parameters at {'/'.join(j)} (for {t})")
         if "kernel" in p:
-            k = np.asarray(p["kernel"])
-            if _is_transposed(j):
-                # flax's ConvTranspose does not flip its kernel
-                # (transpose_kernel=False); torch's ConvTranspose2d is a
-                # convolution's gradient and does: HWIO -> [I, O, H, W]
-                # with both spatial axes mirrored
-                k = np.ascontiguousarray(k[::-1, ::-1].transpose(2, 3, 0, 1))
-            else:
-                k = k.transpose(3, 2, 0, 1)  # HWIO -> OIHW, depthwise too
-            sd[t + ".weight"] = _tensor(k)
+            sd[t + ".weight"] = _tensor(_kernel_from_jax(
+                np.asarray(p["kernel"]), j))
             if "bias" in p:
                 sd[t + ".bias"] = _tensor(p["bias"])
             continue
@@ -313,16 +338,12 @@ def jax_trees_from_state_dict(sd: Mapping[str, torch.Tensor], cfg: Config
     def put(tree: Dict, path: Tuple[str, ...], leaf: str, value: np.ndarray):
         for name in path:
             tree = tree.setdefault(name, {})
-        tree[leaf] = np.ascontiguousarray(value)
+        tree[leaf] = np.array(value, order="C")  # a copy: no view of sd
 
     for t, j in module_map(cfg):
         w = take(t + ".weight")
         if w.ndim == 4:
-            if _is_transposed(j):
-                w = w.transpose(2, 3, 0, 1)[::-1, ::-1]
-            else:
-                w = w.transpose(2, 3, 1, 0)  # OIHW -> HWIO
-            put(params, j, "kernel", w)
+            put(params, j, "kernel", _kernel_to_jax(w, j))
             if t + ".bias" in sd:
                 put(params, j, "bias", take(t + ".bias"))
             continue
@@ -337,6 +358,173 @@ def jax_trees_from_state_dict(sd: Mapping[str, torch.Tensor], cfg: Config
         raise KeyError(f"state_dict keys with no place in the "
                        f"{cfg.arch} trees: {left[:5]}")
     return params, stats
+
+
+# --------------------------------------------------------------------- #
+# the optimizer state
+# --------------------------------------------------------------------- #
+
+# optax's moment trees -> the torch optimizer's per-parameter state
+OPT_MOMENTS = {"adam": (("mu", "exp_avg"), ("nu", "exp_avg_sq")),
+               "sgd": (("trace", "momentum_buffer"),)}
+OPT_LABELS = ("backbone", "head")  # optax.multi_transform's, by top key
+
+
+def _param_places(model: nn.Module, cfg: Config
+                  ) -> List[Tuple[str, Tuple[str, ...], str]]:
+    """(parameter name, flax module path, leaf) for every parameter of
+    ``model``, in ``module_map``'s order; a ``weight`` is a ``kernel``
+    (4-D) or a normalizer's ``scale``."""
+    named = dict(model.named_parameters())
+    places = []
+    for t, j in module_map(cfg):
+        w = named[t + ".weight"]
+        places.append((t + ".weight", j, "kernel" if w.ndim == 4 else "scale"))
+        if t + ".bias" in named:
+            places.append((t + ".bias", j, "bias"))
+    left = set(named) - {n for n, _, _ in places}
+    if left:
+        raise KeyError(f"parameters with no place in the {cfg.arch} trees: "
+                       f"{sorted(left)[:5]}")
+    return places
+
+
+def _label(top: str) -> str:
+    """The JAX ``make_optimizer``'s label of a params subtree."""
+    return "backbone" if top == "backbone" else "head"
+
+
+def _chains(opt_state: Mapping, cfg: Config) -> Dict[str, Mapping]:
+    """{label: the state of that label's optimizer chain}; one label,
+    'head', without ``head_lr_mult``'s split.  A chain is adam's {0:
+    {count, mu, nu}, 1: {}, 2: {count}} or sgd's {0: {trace}, 1:
+    {count}} (scale_by_adam or trace, weight decay, the schedule)."""
+    if cfg.optim_type not in OPT_MOMENTS:
+        raise ValueError(f"Optimizer '{cfg.optim_type}' is not defined.")
+    try:
+        chain = opt_state["1"]
+        chains = {"head": chain} if cfg.head_lr_mult == 1.0 else {
+            g: chain["inner_states"][g]["inner_state"] for g in OPT_LABELS}
+        for c in chains.values():
+            _counts(c, cfg.optim_type)
+            for jk, _ in OPT_MOMENTS[cfg.optim_type]:
+                c["0"][jk]
+    except (KeyError, TypeError) as e:
+        raise ValueError(
+            f"the optimizer state is not that of optim_type="
+            f"{cfg.optim_type!r}, head_lr_mult={cfg.head_lr_mult} "
+            f"(missing {e})") from e
+    return chains
+
+
+def _counts(chain: Mapping, optim_type: str) -> Tuple[Optional[int], int]:
+    """(AdamW's update count or None for SGD, the schedule's count)."""
+    if optim_type == "adam":
+        return int(chain["0"]["count"]), int(chain["2"]["count"])
+    return None, int(chain["1"]["count"])
+
+
+def optimizer_from_jax(opt_state: Mapping, cfg: Config, model: nn.Module,
+                       optimizer: torch.optim.Optimizer,
+                       scheduler: torch.optim.lr_scheduler.LambdaLR) -> int:
+    """Load optax's state of ``make_optimizer(cfg)`` (numpy leaves) into
+    ``optimizer`` and ``scheduler``, made by ``train_state.make_optimizer``
+    for ``model``, in place: every parameter's moments, AdamW's step, and
+    the schedule's position (each group's lr its value there).  Returns
+    the schedule's count, the number of updates so far."""
+    chains = _chains(opt_state, cfg)
+    updates = {_counts(c, cfg.optim_type)[1] for c in chains.values()}
+    if len(updates) != 1:
+        raise ValueError(f"the labels' schedule counts differ: {updates}")
+    count = updates.pop()
+    index = {id(p): i for i, p in enumerate(
+        p for g in optimizer.param_groups for p in g["params"])}
+    named = dict(model.named_parameters())
+    state: Dict[int, Dict[str, torch.Tensor]] = {}
+    for name, path, leaf in _param_places(model, cfg):
+        chain = chains["head" if cfg.head_lr_mult == 1.0
+                       else _label(path[0])]
+        p = named[name]
+        st = {}
+        for jk, tk in OPT_MOMENTS[cfg.optim_type]:
+            a = np.asarray(_at(chain["0"][jk], path)[leaf])
+            # in the parameter's memory format, as torch's own state
+            st[tk] = torch.empty_like(p, device="cpu").copy_(_tensor(
+                _kernel_from_jax(a, path) if leaf == "kernel" else a))
+        adam_count = _counts(chain, cfg.optim_type)[0]
+        if adam_count is not None:
+            st["step"] = torch.tensor(float(adam_count))
+        state[index[id(p)]] = st
+    osd = optimizer.state_dict()
+    ssd = scheduler.state_dict()
+    lrs = [base * fn(count) for base, fn in zip(scheduler.base_lrs,
+                                                scheduler.lr_lambdas)]
+    for group, lr in zip(osd["param_groups"], lrs):
+        group["lr"] = lr
+    osd["state"] = state
+    ssd.update(last_epoch=count, _step_count=count + 1, _last_lr=lrs)
+    optimizer.load_state_dict(osd)
+    scheduler.load_state_dict(ssd)
+    return count
+
+
+def optimizer_to_jax(cfg: Config, model: nn.Module,
+                     optimizer: torch.optim.Optimizer,
+                     scheduler: torch.optim.lr_scheduler.LambdaLR) -> Dict:
+    """``optimizer_from_jax`` backwards: the state optax's
+    ``make_optimizer(cfg).init`` builds, filled from ``optimizer`` and
+    ``scheduler`` (moments as float32 numpy arrays, counts as int32
+    0-d arrays, ``{}`` for the empty states and the other label's
+    subtrees).  A parameter with no state yet (no update) has zero
+    moments; a label with no parameter (the backbone of a model without
+    one) takes the schedule's count, as optax counts every label's
+    updates."""
+    count = int(scheduler.last_epoch)
+    places = _param_places(model, cfg)
+    named = dict(model.named_parameters())
+    labels = ("head",) if cfg.head_lr_mult == 1.0 else OPT_LABELS
+    tops = list(dict.fromkeys(path[0] for _, path, _ in places))
+    trees = {g: {jk: {t: {} for t in tops}
+                 for jk, _ in OPT_MOMENTS[cfg.optim_type]} for g in labels}
+    steps: Dict[str, set] = {g: set() for g in labels}
+    for name, path, leaf in places:
+        g = labels[0] if len(labels) == 1 else _label(path[0])
+        p = named[name]
+        st = optimizer.state.get(p, {})
+        for jk, tk in OPT_MOMENTS[cfg.optim_type]:
+            t = st.get(tk)
+            a = np.zeros(tuple(p.shape), np.float32) if t is None else \
+                t.detach().cpu().float().numpy()
+            if leaf == "kernel":
+                a = _kernel_to_jax(a, path)
+            node = trees[g][jk]
+            for key in path:
+                node = node.setdefault(key, {})
+            node[leaf] = np.array(a, order="C")  # no view of the state
+        if "step" in st:
+            steps[g].add(int(st["step"]))
+    for g, seen in steps.items():
+        if len(seen) > 1:
+            raise ValueError(f"the {g} parameters' AdamW steps differ: "
+                             f"{sorted(seen)}")
+
+    def i32(n: int) -> np.ndarray:
+        return np.asarray(n, np.int32)
+
+    def chain(g: str) -> Dict:
+        if cfg.optim_type == "sgd":
+            return {"0": {"trace": trees[g]["trace"]},
+                    "1": {"count": i32(count)}}
+        has_params = any(trees[g]["mu"][t] for t in tops)
+        adam = min(steps[g], default=0 if has_params else count)
+        return {"0": {"count": i32(adam), "mu": trees[g]["mu"],
+                      "nu": trees[g]["nu"]},
+                "1": {}, "2": {"count": i32(count)}}
+
+    if cfg.head_lr_mult == 1.0:
+        return {"0": {}, "1": chain("head")}
+    return {"0": {}, "1": {"inner_states": {
+        g: {"inner_state": chain(g)} for g in OPT_LABELS}}}
 
 
 # --------------------------------------------------------------------- #
@@ -550,10 +738,11 @@ def _msgpack():
     return msgpack
 
 
-def _read_ckpt_trees(path: str) -> Dict[str, Any]:
+def _read_ckpt_trees(path: str, keys: Sequence[str] = ("params",)
+                     ) -> Dict[str, Any]:
     """flax's ``serialization.to_bytes`` without flax: plain msgpack whose
     arrays are extension type 1, each msgpack of (shape, dtype name,
-    bytes)."""
+    bytes).  The top level must hold ``keys``."""
     msgpack = _msgpack()
 
     def ext_hook(code, data):
@@ -570,9 +759,38 @@ def _read_ckpt_trees(path: str) -> Dict[str, Any]:
                                strict_map_key=False)
     except Exception as e:
         raise ValueError(f"{path}: not a msgpack model file ({e})") from e
-    if not isinstance(tree, dict) or "params" not in tree:
-        raise ValueError(f"{path}: no 'params' tree: not a best-model .ckpt")
+    missing = [k for k in keys if not isinstance(tree, dict) or k not in tree]
+    if missing:
+        what = "checkpoint" if "opt_state" in keys else "best-model"
+        raise ValueError(f"{path}: no {missing[0]!r} tree: not a {what} "
+                         ".ckpt")
     return tree
+
+
+def _write_ckpt(path: str, payload: Mapping, cfg: Config):
+    """``payload`` as flax's msgpack (numpy arrays as extension type 1),
+    and ``cfg``'s meta beside it, each written atomically."""
+    msgpack = _msgpack()
+
+    def pack(x):
+        if isinstance(x, np.ndarray):
+            return msgpack.ExtType(CKPT_ARRAY_EXT, msgpack.packb(
+                (x.shape, x.dtype.name, x.tobytes("C")), use_bin_type=True))
+        raise TypeError(f"cannot pack {type(x).__name__}")
+
+    blob = msgpack.packb(payload, default=pack, strict_types=True)
+    for target, data in ((path, blob),
+                         (path + ".meta", cfg.to_meta_json().encode())):
+        with open(target + ".tmp", "wb") as f:
+            f.write(data)
+        os.replace(target + ".tmp", target)
+
+
+def _read_meta(path: str) -> Optional[Dict]:
+    if not os.path.exists(path + ".meta"):
+        return None
+    with open(path + ".meta") as f:
+        return json.load(f)
 
 
 def load_ckpt_model(path: str, base_cfg: Optional[Config] = None
@@ -582,13 +800,12 @@ def load_ckpt_model(path: str, base_cfg: Optional[Config] = None
 
     The meta rehydrates the config over ``base_cfg``, which supplies what
     the meta does not carry (``norm_type``, ``up_mode``, ``activ_type``,
-    the U-Net's depth and width).  Only the model crosses: the optimizer
-    state of a resumable ``checkpoint.ckpt`` is optax's and is not
-    bridged."""
+    the U-Net's depth and width).  A resumable ``checkpoint.ckpt``, with
+    the optimizer state, goes through ``load_ckpt_checkpoint``."""
     cfg = base_cfg or Config()
-    if os.path.exists(path + ".meta"):
-        with open(path + ".meta") as f:
-            cfg = Config.from_meta(json.load(f), base=cfg)
+    meta = _read_meta(path)
+    if meta is not None:
+        cfg = Config.from_meta(meta, base=cfg)
     tree = _read_ckpt_trees(path)
     model = build_model(cfg)
     model.load_state_dict(
@@ -600,21 +817,75 @@ def load_ckpt_model(path: str, base_cfg: Optional[Config] = None
 def save_ckpt_model(model: nn.Module, cfg: Config, path: str) -> str:
     """Write ``model`` as a best-model ``.ckpt`` with its ``.meta``, which
     ``pylc_tpu.checkpoint.load_model_file`` and the JAX package's ``test``
-    read.  No optimizer state (see ``load_ckpt_model``)."""
-    msgpack = _msgpack()
+    read.  No optimizer state (``save_ckpt_checkpoint`` writes one)."""
+    _msgpack()  # before the trees: without it nothing can be written
     params, stats = jax_trees_from_state_dict(model.state_dict(), cfg)
+    _write_ckpt(path, {"params": params, "batch_stats": stats}, cfg)
+    return path
 
-    def pack(x):
-        if isinstance(x, np.ndarray):
-            return msgpack.ExtType(CKPT_ARRAY_EXT, msgpack.packb(
-                (x.shape, x.dtype.name, x.tobytes("C")), use_bin_type=True))
-        raise TypeError(f"cannot pack {type(x).__name__}")
 
-    blob = msgpack.packb({"params": params, "batch_stats": stats},
-                         default=pack, strict_types=True)
-    for target, data in ((path, blob),
-                         (path + ".meta", cfg.to_meta_json().encode())):
-        with open(target + ".tmp", "wb") as f:
-            f.write(data)
-        os.replace(target + ".tmp", target)
+def checkpoint_from_jax(payload: Mapping, cfg: Config, model: nn.Module,
+                        optimizer: torch.optim.Optimizer,
+                        scheduler: torch.optim.lr_scheduler.LambdaLR
+                        ) -> Tuple[int, int]:
+    """The JAX package's resumable payload ({epoch, iter, params,
+    batch_stats, opt_state} as numpy trees: ``pylc_tpu.checkpoint``'s)
+    into ``model``, ``optimizer`` and ``scheduler`` (built for ``cfg`` by
+    ``init_model`` and ``make_optimizer``) in place, on whatever device
+    they are.  BatchNorm's ``num_batches_tracked``, which flax does not
+    keep, becomes ``iter``.  Returns (epoch, iter)."""
+    iteration = int(payload["iter"])
+    sd = state_dict_from_jax(payload["params"],
+                             payload.get("batch_stats") or {}, cfg)
+    for k in model.state_dict():
+        if k.endswith("num_batches_tracked"):
+            sd[k] = torch.tensor(iteration)
+    model.load_state_dict(sd, strict=True)
+    count = optimizer_from_jax(payload["opt_state"], cfg, model, optimizer,
+                               scheduler)
+    if count != iteration:
+        raise ValueError(f"iter {iteration}, but the optimizer state counts "
+                         f"{count} updates")
+    return int(payload["epoch"]), iteration
+
+
+def checkpoint_to_jax(cfg: Config, model: nn.Module,
+                      optimizer: torch.optim.Optimizer,
+                      scheduler: torch.optim.lr_scheduler.LambdaLR,
+                      epoch: int, iteration: int) -> Dict[str, Any]:
+    """``checkpoint_from_jax`` backwards: the payload the JAX package's
+    ``Checkpoint.save`` writes."""
+    params, stats = jax_trees_from_state_dict(model.state_dict(), cfg)
+    return {"epoch": int(epoch), "iter": int(iteration), "params": params,
+            "batch_stats": stats,
+            "opt_state": optimizer_to_jax(cfg, model, optimizer, scheduler)}
+
+
+def load_ckpt_checkpoint(path: str, cfg: Config, model: nn.Module,
+                         optimizer: torch.optim.Optimizer,
+                         scheduler: torch.optim.lr_scheduler.LambdaLR
+                         ) -> Dict[str, Any]:
+    """Restore the JAX package's resumable ``checkpoint.ckpt`` into
+    ``model``, ``optimizer`` and ``scheduler`` (``checkpoint_from_jax``).
+    Returns {'epoch', 'iter', 'meta'}; the meta is the file's and is not
+    applied (the JAX trainer's resume does not apply it either)."""
+    tree = _read_ckpt_trees(path, ("epoch", "iter", "params", "opt_state"))
+    try:
+        epoch, iteration = checkpoint_from_jax(tree, cfg, model, optimizer,
+                                               scheduler)
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from e
+    return {"epoch": epoch, "iter": iteration, "meta": _read_meta(path)}
+
+
+def save_ckpt_checkpoint(path: str, cfg: Config, model: nn.Module,
+                         optimizer: torch.optim.Optimizer,
+                         scheduler: torch.optim.lr_scheduler.LambdaLR,
+                         epoch: int, iteration: int) -> str:
+    """Write a resumable ``checkpoint.ckpt`` with its ``.meta`` in the
+    JAX package's layout, which ``pylc_tpu.checkpoint.Checkpoint.load``
+    restores into a state of ``cfg`` and its trainer resumes."""
+    _msgpack()
+    _write_ckpt(path, checkpoint_to_jax(cfg, model, optimizer, scheduler,
+                                        epoch, iteration), cfg)
     return path

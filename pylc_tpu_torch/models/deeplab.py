@@ -3,6 +3,15 @@
 Port of ``pylc_tpu/models/deeplab.py``, with the reference checkpoints'
 module names (``decoder.last_conv.8`` is the head).  The backbone is
 ResNet101, Aligned Xception, MobileNetV2 or DRN-D-54.
+
+``remat`` (``Config.remat_backbone``, passed by ``registry.build_model``
+as the JAX registry passes ``remat=train and cfg.remat_backbone``)
+rematerializes the backbone's blocks whenever the module is in train mode
+and gradients are enabled: a ``Bottleneck`` of ResNet101 or DRN-D-54, an
+Xception ``Block``, a MobileNetV2 ``InvertedResidual``
+(``models.layers.run_blocks``).  The stems, DRN's conv stages, the ASPP
+and the decoder run as they are; eval and inference are untouched.  The
+flag is the backbone's ``remat`` attribute, which a caller may set.
 """
 
 from __future__ import annotations
@@ -52,22 +61,23 @@ class DeepLabDecoder(nn.Module):
 
 class DeepLab(nn.Module):
     """x: [B, 3, H, W] normalized input -> [B, n_classes, H, W] f32 logits.
-    ``layers`` is the ResNet's block counts."""
+    ``layers`` is the ResNet's block counts; ``remat`` rematerializes the
+    backbone's blocks in training."""
 
     def __init__(self, n_classes: int = 9, backbone: str = "resnet",
                  norm: Callable[[int], nn.Module] = nn.BatchNorm2d,
-                 layers: Sequence[int] = (3, 4, 23, 3)):
+                 layers: Sequence[int] = (3, 4, 23, 3), remat: bool = False):
         super().__init__()
         output_stride = 16
         if backbone == "resnet":
-            self.backbone = ResNet101(norm, layers=layers)
+            self.backbone = ResNet101(norm, layers=layers, remat=remat)
         elif backbone == "xception":
-            self.backbone = AlignedXception(norm)
+            self.backbone = AlignedXception(norm, remat=remat)
         elif backbone == "mobilenet":
-            self.backbone = MobileNetV2(norm, output_stride)
+            self.backbone = MobileNetV2(norm, output_stride, remat=remat)
         elif backbone == "drn":
             output_stride = 8  # DRN is natively output stride 8
-            self.backbone = DRN54(norm)
+            self.backbone = DRN54(norm, remat=remat)
         else:
             raise ValueError(f"Unknown backbone '{backbone}'")
         inplanes, low_level_inplanes = BACKBONE_CHANNELS[backbone]

@@ -12,7 +12,9 @@ Port of ``pylc_tpu/models/drn.py``: the arch-D plan, layers
 Natively output stride 8.  Module names are the DRN checkpoints' own
 (``layer0.0/.1``; a conv stage's conv j and norm j at ``layer{L}.{3j}`` and
 ``layer{L}.{3j + 1}``; ``layer{3..6}.{i}.conv1`` ...), so ``drn_d_54-*.pth``
-loads into the backbone.
+loads into the backbone.  ``remat`` rematerializes every ``Bottleneck``
+of layer3..6 in training (``models.layers.run_blocks``), as the JAX
+package's ``nn.remat(Bottleneck)``; layer0 and the conv stages are not.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import Callable, Tuple
 import torch
 import torch.nn as nn
 
+from pylc_tpu_torch.models.layers import run_blocks
 from pylc_tpu_torch.models.resnet import Bottleneck
 
 
@@ -59,8 +62,10 @@ class DRN54(nn.Module):
     """Returns (x [B, 512, H/8, W/8], low_level_feat [B, 256, H/4, W/4],
     taken after layer3)."""
 
-    def __init__(self, norm: Callable[[int], nn.Module] = nn.BatchNorm2d):
+    def __init__(self, norm: Callable[[int], nn.Module] = nn.BatchNorm2d,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.layer0 = nn.Sequential(
             nn.Conv2d(3, 16, 7, padding=3, bias=False), norm(16), nn.ReLU())
         self.layer1 = conv_stage(16, 16, 1, 1, 1, norm)
@@ -73,7 +78,9 @@ class DRN54(nn.Module):
         self.layer8 = conv_stage(512, 512, 1, 1, 1, norm)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        x = self.layer3(self.layer2(self.layer1(self.layer0(x))))
+        x = self.layer2(self.layer1(self.layer0(x)))
+        x = run_blocks(self.layer3, x, self.remat)
         low_level_feat = x
-        x = self.layer6(self.layer5(self.layer4(x)))
+        for layer in (self.layer4, self.layer5, self.layer6):
+            x = run_blocks(layer, x, self.remat)
         return self.layer8(self.layer7(x)), low_level_feat

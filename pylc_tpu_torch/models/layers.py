@@ -1,18 +1,30 @@
 """Shared layers: normalizers, activations, align-corners resize,
-center crop, max-pool.
+center crop, max-pool, and the backbones' block rematerialization.
 
 Port of ``pylc_tpu/models/layers.py``.  Modules here are NCHW (PyTorch's
 habit; the serving path keeps them in ``channels_last`` memory).
+
+``run_blocks`` is the counterpart of the JAX package's ``nn.remat`` over a
+backbone's blocks: with ``remat`` on, in train mode and with gradients
+enabled, each block runs under ``torch.utils.checkpoint`` (non-reentrant),
+which keeps only the block's input and recomputes its activations in the
+backward.  The recompute runs inside ``recompute_context``, where the
+normalizers take the same batch statistics but leave their running ones
+alone, so they move once per step, as flax's ``nn.remat`` keeps the first
+forward's ``batch_stats``.
 """
 
 from __future__ import annotations
 
+import threading
+from contextlib import contextmanager, nullcontext
 from functools import partial
-from typing import Callable
+from typing import Callable, Iterable
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 # flax's gelu defaults to the tanh approximation
 ACTIVATIONS = {
@@ -30,6 +42,50 @@ def get_activation(name: str) -> Callable:
     return ACTIVATIONS[name]
 
 
+_RECOMPUTE = threading.local()
+
+
+def recomputing() -> bool:
+    """Whether this thread is inside the backward's recompute of a
+    rematerialized block."""
+    return getattr(_RECOMPUTE, "on", False)
+
+
+@contextmanager
+def recompute_context():
+    """Around the recompute of a checkpointed block (the autograd thread
+    that runs the backward enters it)."""
+    before = recomputing()
+    _RECOMPUTE.on = True
+    try:
+        yield
+    finally:
+        _RECOMPUTE.on = before
+
+
+def _remat_contexts():
+    return nullcontext(), recompute_context()
+
+
+def run_blocks(blocks: Iterable[nn.Module], x: torch.Tensor, remat: bool
+               ) -> torch.Tensor:
+    """``x`` through ``blocks`` in order, each rematerialized when
+    ``remat`` is on, the block is in train mode and gradients are
+    enabled; otherwise a plain call (eval and inference are untouched).
+    The random generators are not saved for the recompute: no backbone
+    block draws a random number (the DeepLab's dropout lies in its
+    decoder), and saving and restoring the CPU's and the card's
+    generators around every block costs host time in every step."""
+    for block in blocks:
+        if remat and block.training and torch.is_grad_enabled():
+            x = checkpoint(block, x, use_reentrant=False,
+                           preserve_rng_state=False,
+                           context_fn=_remat_contexts)
+        else:
+            x = block(x)
+    return x
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose train mode follows flax ``BatchNorm``.
 
@@ -38,7 +94,9 @@ class BatchNorm2d(nn.BatchNorm2d):
     (torch uses the unbiased one: n/(n-1) larger, 8/7 for the ASPP
     image-pool BN at batch 8, whose n is the batch size).  With one value
     per channel it returns the bias, as flax does, instead of raising.
-    Eval mode and the state_dict keys are torch's own."""
+    Eval mode and the state_dict keys are torch's own.  Inside
+    ``recompute_context`` it normalizes as in train mode and moves no
+    running statistic."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -48,14 +106,21 @@ class BatchNorm2d(nn.BatchNorm2d):
         if n == 1:
             # batch variance 0 and x - mean = 0: the output is the bias,
             # and x keeps a (zero) gradient, as in flax
-            with torch.no_grad():
-                self.running_mean.mul_(1 - m).add_(
-                    x.detach().reshape(-1).float(), alpha=m)
-                self.running_var.mul_(1 - m)
-                self.num_batches_tracked.add_(1)
+            if not recomputing():
+                with torch.no_grad():
+                    self.running_mean.mul_(1 - m).add_(
+                        x.detach().reshape(-1).float(), alpha=m)
+                    self.running_var.mul_(1 - m)
+                    self.num_batches_tracked.add_(1)
             c = (1, -1, 1, 1)
             return ((x - x) * self.weight.view(c)
                     + self.bias.view(c)).to(x.dtype)
+        if recomputing():
+            # the first forward's call, on copies of the running
+            # statistics: the same kernel, the buffers left as they are
+            return F.batch_norm(x, self.running_mean.clone(),
+                                self.running_var.clone(), self.weight,
+                                self.bias, True, m, self.eps)
         old_var = self.running_var.clone()
         y = super().forward(x)
         # torch set running_var = (1-m) old + m var * n/(n-1); rescale the

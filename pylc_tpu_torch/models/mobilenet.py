@@ -14,6 +14,10 @@ Padding follows the reference: the whole block input is zero-padded by
 2 x dilation before the expand conv, and the depthwise conv runs unpadded,
 so the pad ring goes through the expand conv and its norm and border
 pixels see norm(0), not 0.
+
+``remat`` rematerializes every ``InvertedResidual`` in training
+(``models.layers.run_blocks``), as the JAX package's
+``nn.remat(InvertedResidual)``; the stem (``features.0``) is not.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ from typing import Callable, Sequence, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from pylc_tpu_torch.models.layers import run_blocks
 
 # (expand ratio t, out channels c, repeats n, stride s)
 SETTINGS: Sequence[Tuple[int, int, int, int]] = (
@@ -65,8 +71,9 @@ class MobileNetV2(nn.Module):
     W/4])."""
 
     def __init__(self, norm: Callable[[int], nn.Module] = nn.BatchNorm2d,
-                 output_stride: int = 16):
+                 output_stride: int = 16, remat: bool = False):
         super().__init__()
+        self.remat = remat
         if output_stride not in (8, 16):
             raise NotImplementedError(f"output_stride {output_stride}")
         features = [nn.Sequential(
@@ -87,6 +94,8 @@ class MobileNetV2(nn.Module):
         self.features = nn.Sequential(*features)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        low_level_feat = self.features[:LOW_LEVEL_BLOCKS](x)
-        return self.features[LOW_LEVEL_BLOCKS:](low_level_feat), \
-            low_level_feat
+        x = self.features[0](x)
+        low_level_feat = run_blocks(self.features[1:LOW_LEVEL_BLOCKS], x,
+                                    self.remat)
+        return run_blocks(self.features[LOW_LEVEL_BLOCKS:], low_level_feat,
+                          self.remat), low_level_feat

@@ -14,7 +14,12 @@ from pylc_tpu_torch.models.unet import UNet
 def build_model(cfg: Config) -> nn.Module:
     """Instantiate the configured architecture (train/eval is the
     module's mode flag, not a build argument as in flax; torch modules
-    take their input channels at construction, flax infers them)."""
+    take their input channels at construction, flax infers them).
+
+    ``cfg.remat_backbone`` rematerializes a DeepLab's backbone blocks
+    whenever the model trains (``models/deeplab.py``), as the JAX
+    registry's ``remat=train and cfg.remat_backbone``; the U-Nets ignore
+    it, as the JAX registry does."""
     act = get_activation(cfg.activ_type)
     norm = make_norm(cfg.norm_type)
     if cfg.arch == "unet":
@@ -30,7 +35,7 @@ def build_model(cfg: Config) -> nn.Module:
                        up_mode=cfg.up_mode, norm=norm, act=act)
     if cfg.arch == "deeplab":
         return DeepLab(n_classes=cfg.n_classes, backbone=cfg.backbone,
-                       norm=norm)
+                       norm=norm, remat=bool(cfg.remat_backbone))
     raise ValueError(f"Model '{cfg.arch}' not available. "
                      f"Options: {cfg.arch_options}")
 

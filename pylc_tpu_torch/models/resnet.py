@@ -2,7 +2,9 @@
 
 Port of ``pylc_tpu/models/resnet.py``.  Module names follow the
 reference checkpoints (``layer3.7.conv2``, ``layer1.0.downsample.0``), so
-a reference ``.pth`` loads key for key.
+a reference ``.pth`` loads key for key.  ``remat`` rematerializes every
+``Bottleneck`` in training (``models.layers.run_blocks``), as the JAX
+package's ``nn.remat(Bottleneck)``; the stem is not.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from pylc_tpu_torch.models.layers import max_pool_3x3_s2_p1
+from pylc_tpu_torch.models.layers import max_pool_3x3_s2_p1, run_blocks
 
 MULTI_GRID = (1, 2, 4)  # layer4's dilation multipliers
 
@@ -49,9 +51,10 @@ class ResNet101(nn.Module):
     multi-grid unit), so tests can build a shallow ``(1, 1, 1, 1)``."""
 
     def __init__(self, norm: Callable[[int], nn.Module] = nn.BatchNorm2d,
-                 layers: Sequence[int] = (3, 4, 23, 3)):
+                 layers: Sequence[int] = (3, 4, 23, 3), remat: bool = False):
         super().__init__()
         self.norm = norm
+        self.remat = remat
         self.inplanes = 64
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = norm(64)
@@ -79,7 +82,8 @@ class ResNet101(nn.Module):
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         x = F.relu(self.bn1(self.conv1(x)))
         x = max_pool_3x3_s2_p1(x)
-        x = self.layer1(x)
+        x = run_blocks(self.layer1, x, self.remat)
         low_level_feat = x
-        x = self.layer4(self.layer3(self.layer2(x)))
+        for layer in (self.layer2, self.layer3, self.layer4):
+            x = run_blocks(layer, x, self.remat)
         return x, low_level_feat

@@ -12,6 +12,10 @@ norm] units whose leading ReLU is left out when ``start_with_relu`` is
 false, so separable j sits at ``rep.{3j}`` in blocks 1-2 and at
 ``rep.{3j + 1}`` in blocks 3-20.  Every block has three units.
 
+``remat`` rematerializes each of the 20 blocks in training
+(``models.layers.run_blocks``), as the JAX package's ``nn.remat(XBlock)``;
+the stem convs and the exit flow's separable convs are not.
+
 No ReLU here works in place: a block's skip path reads the block's input,
 which an in-place ``rep.0`` would have rectified by then.
 """
@@ -23,6 +27,8 @@ from typing import Callable, List, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from pylc_tpu_torch.models.layers import run_blocks
 
 
 class SeparableConv2d(nn.Module):
@@ -87,8 +93,10 @@ class AlignedXception(nn.Module):
     """Output stride 16: returns (x [B, 2048, H/16, W/16], low_level_feat
     [B, 128, H/4, W/4])."""
 
-    def __init__(self, norm: Callable[[int], nn.Module] = nn.BatchNorm2d):
+    def __init__(self, norm: Callable[[int], nn.Module] = nn.BatchNorm2d,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         # output stride 16: block3 strides, the middle flow is not
         # dilated, the exit flow's separable convs are, by 2
         entry3_stride, mid_dil, exit_dil = 2, 1, (1, 2)
@@ -121,10 +129,10 @@ class AlignedXception(nn.Module):
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.relu(self.bn2(self.conv2(x)))
-        x = F.relu(self.block1(x))
+        x = F.relu(run_blocks([self.block1], x, self.remat))
         low_level_feat = x
-        for i in range(2, 21):
-            x = getattr(self, f"block{i}")(x)
+        x = run_blocks([getattr(self, f"block{i}") for i in range(2, 21)], x,
+                       self.remat)
         x = F.relu(x)
         for i in (3, 4, 5):
             x = F.relu(getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(x)))

@@ -20,7 +20,7 @@ from typing import Tuple
 
 import torch
 
-from pylc_tpu_torch.models.layers import BatchNorm2d
+from pylc_tpu_torch.models.layers import BatchNorm2d, recomputing
 from pylc_tpu_torch.parallel.mesh import all_reduce_sum, world_size
 
 
@@ -61,15 +61,18 @@ class SyncBatchNorm2d(BatchNorm2d):
     running mean and variance toward them (the biased variance over the
     global count, as flax would over the sharded batch).  With one rank,
     and in eval mode, it is ``BatchNorm2d``; its state_dict keys are the
-    same."""
+    same.  In the backward's recompute of a rematerialized block
+    (``models.layers.recompute_context``) every rank all-reduces the
+    moments again, in the same order, and no running statistic moves."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or world_size() == 1:
             return super().forward(x)
         mean, var, _ = cross_replica_moments(x)
         m = self.momentum
-        with torch.no_grad():
-            self.running_mean.mul_(1 - m).add_(mean.detach(), alpha=m)
-            self.running_var.mul_(1 - m).add_(var.detach(), alpha=m)
-            self.num_batches_tracked.add_(1)
+        if not recomputing():
+            with torch.no_grad():
+                self.running_mean.mul_(1 - m).add_(mean.detach(), alpha=m)
+                self.running_var.mul_(1 - m).add_(var.detach(), alpha=m)
+                self.num_batches_tracked.add_(1)
         return _normalize(x, mean, var, self.weight, self.bias, self.eps)

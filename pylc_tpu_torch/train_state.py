@@ -227,11 +227,10 @@ def make_train_step(cfg: Config, model: nn.Module,
     before the clip.  The batch flip is drawn from ``generator`` (a CPU
     ``torch.Generator``, so the draw needs no device sync; every rank
     seeds its own alike, so all ranks flip together); ``flip=`` overrides
-    the draw.  Dropout draws from the device's default generator."""
-    if cfg.remat_backbone:
-        raise NotImplementedError(
-            "remat_backbone (activation checkpointing of the backbone) is "
-            "not ported: ROADMAP Queue 1 item 11")
+    the draw.  Dropout draws from the device's default generator.  A
+    DeepLab built with ``cfg.remat_backbone`` recomputes its backbone's
+    blocks in the backward (``models/deeplab.py``); the loss lies outside
+    the backbone, so K2a and K2b still run once per step."""
     loss_fn = select_loss(cfg)
     bf16 = _set_tf32(cfg)
     device = _device(model)

@@ -6,7 +6,8 @@ rehydration (data fields only), the pretrained-encoder rule (a missing
 default path trains from scratch, a path or flag the user gave must
 exist), validation at the first epoch and after each epoch with the
 best model gated on validation Dice, a resume that completes exactly
-``n_epochs`` (DEVIATIONS F3), and metrics pulled to the host every
+``n_epochs`` (DEVIATIONS F3) from the port's ``checkpoint.pth`` or the JAX
+package's ``checkpoint.ckpt``, and metrics pulled to the host every
 ``report`` steps.  On several ranks (``parallel/mesh.py``) each rank
 trains on its shard of the train split under DDP, validation is sharded
 when the split has a row for every rank, and rank 0 alone writes.
@@ -162,11 +163,12 @@ def train(cfg: Config, db: Union[str, Dict], n_devices: Optional[int] = None,
     loss = RunningLoss(model_id, cfg.save_dir, resume=cfg.resume_checkpoint)
     epoch0 = it = 0
     if cfg.resume_checkpoint:
-        restored = ckpt.load(model, optimizer, scheduler)
+        restored = ckpt.load(model, optimizer, scheduler, cfg)
         if restored is not None:
             epoch0, it = restored["epoch"], restored["iter"]
             if say:
-                print(f"Resumed from epoch {epoch0} (iter {it}).")
+                print(f"Resumed from epoch {epoch0} (iter {it}) of "
+                      f"{restored['file']}.")
     elif me == 0:
         ckpt.reset()
 

@@ -408,12 +408,26 @@ def test_batchnorm_running_stats_match_jax(jax_init, batch):
         assert (got[k] - want[k]).norm() < 1e-6 * (unbiased - want[k]).norm()
 
 
-def test_remat_backbone_is_not_ported():
-    model = torch.nn.Linear(1, 1)
-    opt, sched = make_optimizer(Config(), model, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step(Config().replace(remat_backbone=True), model, opt,
-                        sched)
+def test_remat_backbone_is_not_ported(jax_init, trained):
+    """The name is the one this test had while ``remat_backbone`` raised;
+    it trains now.  From the same weights and batch as ``trained``'s first
+    step, a port step with every backbone block rematerialized gives the
+    same metrics and the same state_dict bit for bit (one thread, the
+    same operations recomputed; tests/test_torch_remat.py holds it
+    further)."""
+    cfg, _, params, stats = jax_init
+    _, runs, _ = trained
+    model = _port_model(cfg.replace(remat_backbone=True), params, stats)
+    assert model.backbone.remat
+    opt, sched = make_optimizer(cfg, model, SPE)
+    img, mask = _batch(100)
+    m = make_train_step(cfg, model, opt, sched)(
+        torch.from_numpy(img), torch.from_numpy(mask),
+        flip=_flip_of(jax.random.PRNGKey(STEP_KEYS[0])))
+    assert {k: float(v) for k, v in m.items()} == runs[0]["metrics"][0]
+    for k, v in model.state_dict().items():
+        torch.testing.assert_close(v, runs[0]["port"][k], rtol=0, atol=0,
+                                   msg=k)
 
 
 def test_fused_loss_off_step_matches_jax(jax_init, monkeypatch):
