@@ -15,11 +15,13 @@ Phases, in order; any failed check raises, and the script exits non-zero:
            a grayscale photo, at a ragged shape of each of the four tiled
            instantiations and at a ragged one of the generic kernel, and
            on the wide kernel (17 to 128 classes) at 20 classes on the
-           slice's 1024x1792 grid and at ragged shapes of 17, 20 and 128
-           classes and of r = 8 with a 4-channel guide; per shape the
-           kernel that ran, its time, the plain version's, the generic
-           kernel's (in turns with it) and the bound.  Fails if a tiled
-           instantiation or the wide kernel was not launched.
+           slice's 1024x1792 grid, at 64 and 128 classes on 512x512, and
+           at ragged shapes of 17 to 128 classes and r = 0 to 5 (one per
+           instantiation) and on the simple wide kernel past them (r = 8
+           with a 4-channel guide); per shape the kernel that ran, its time, the plain
+           version's, the simple form's (the generic or simple wide
+           kernel, in turns with it) and the bound.  Fails if a tiled or
+           wide instantiation or the simple wide kernel was not launched.
   [k2]     K2a and K2b against their plain versions at the training
            slice's [8, 9, 512, 512] channels_last logits (weighted and
            not), at a ragged channels_last [3, 9, 61, 53], a ragged
@@ -29,15 +31,17 @@ Phases, in order; any failed check raises, and the script exits non-zero:
            [3, 11, 61, 53], both channels_last, and at the U-Net's
            [8, 9, 324, 324] channels_last; on the wide kernels (17 to 128
            classes) at [2, 20, 61, 53] and [2, 128, 37, 29], channels_last
-           and contiguous, and at a 20-class train step's [8, 20, 512, 512]
-           channels_last: K2a's 3C + 4 statistics entry by entry and the
-           losses from them, twice for bit-equal results, K2b's dlogits
-           against the plain backward fed by the plain forward, and K2b's
-           direct kernel held to the same limit; per shape the kernels
-           that ran, the times (K2b in turns with its direct kernel) and
-           the bounds.  Fails if a compile-time instantiation (K2a's and
-           K2b's direct kernels and K2b's staged kernel, each at 9 and 11
-           classes) or a wide kernel was not launched.
+           (K2b's wide staged kernel) and contiguous (its wide direct
+           one), at [2, 33, 61, 53] channels_last, and at the train steps'
+           [8, 20, 512, 512] and [8, 128, 512, 512] channels_last: K2a's
+           3C + 4 statistics entry by entry and the losses from them, K2a
+           and K2b twice for bit-equal results, K2b's dlogits against the
+           plain backward fed by the plain forward, and K2b's direct
+           kernel held to the same limit; per shape the kernels that ran,
+           the times (K2b in turns with its direct kernel) and the bounds.
+           Fails if a compile-time instantiation (K2a's and K2b's direct
+           kernels and K2b's staged kernel, each at 9 and 11 classes) or a
+           wide kernel was not launched.
   [net]    the f32 network on the card against the same network on the
            CPU.
   [slice]  the segmentation path: ``Segmenter`` with the CRF on, at full
@@ -67,9 +71,10 @@ Phases, in order; any failed check raises, and the script exits non-zero:
            Segmenter's; then the ``export`` and ``serve`` CLI modes (on the
            card by default) on the same ``.pth`` and photo.
   [wide]   a user's 20-class schema: DeepLabV3+/ResNet101 with the CRF on
-           a 1024x1024 photo, K1 on its wide kernel, the class map against
-           the plain CRF; 5 train steps at 512 px, batch 8, K2a and K2b on
-           their wide kernels once per step, the loss falling.
+           a 1024x1024 photo, K1 on its wide kernel (r = 3), the class
+           map against the plain CRF; 5 train steps at 512 px, batch 8,
+           K2a and K2b (staged) on their wide kernels once per step, the
+           loss falling.
   [train]  the training path: ``trainer.train`` at full width (512 px,
            batch 8, bf16 autocast, AdamW with step_lr, clip 0.5, the fused
            loss on K2a/K2b) on an in-memory DB of 40 seeded tiles for 2
@@ -188,12 +193,21 @@ K1_SHAPES = [                  # (C, G, H, W, r)
     (9, 1, 45, 53, 3),
     (11, 1, 29, 66, 3),
     (11, 3, 37, 70, 2),        # ragged, schema_b's classes, generic kernel
-    # more classes than the generic kernel holds: the wide kernel
+    # more classes than the generic kernel holds: the wide kernel, one
+    # shape per radius it is built for, and the simple wide kernel past
+    # them
     (20, 3, 1024, 1792, 3),    # a 20-class schema on the slice's grid
+    (64, 3, 512, 512, 3),      # wider schemas, where the plain version
+    (128, 3, 512, 512, 3),     # still fits the card
     (17, 3, 37, 70, 3),        # ragged, one class past the generic kernel
     (20, 3, 37, 70, 3),
     (128, 3, 37, 70, 3),       # the largest class count
-    (20, 4, 29, 66, 8),        # the largest guide and radius
+    (17, 1, 37, 70, 0),
+    (31, 4, 45, 53, 1),
+    (33, 3, 29, 66, 2),
+    (104, 3, 37, 70, 4),
+    (128, 4, 37, 70, 5),       # the largest sizes the wide kernel takes
+    (20, 4, 29, 66, 8),        # the largest guide and radius: simple wide
 ]
 K1_ATOL = 1e-5                 # f32, no fast math; measured ~2e-7
 CRF_AGREEMENT = 0.999          # class maps, kernel CRF vs plain CRF
@@ -221,12 +235,14 @@ K2_WIDE_SHAPES = [
     (2, 128, 37, 29, True, True, True),
     (2, 128, 37, 29, False, False, True),
     (8, 20, 512, 512, True, False, False),  # a 20-class train step's
+    (8, 128, 512, 512, True, False, False),  # the largest class count's
+    (2, 33, 61, 53, True, True, True),  # K2b's wide span of 128 pixels
 ]
 # the compile-time instantiations that [k1] and [k2] must have launched
 K2_CLASS_COUNTS = (9, 11)
 K2A_MUST_RUN = {f"direct<C={C}>" for C in K2_CLASS_COUNTS}
 K2B_MUST_RUN = {f"{kind}<C={C}>" for C in K2_CLASS_COUNTS
-                for kind in ("staged", "direct")}
+                for kind in ("staged", "direct")} | {"wide", "wide-staged"}
 # f32, no fast math.  Both sides sum millions of terms in different
 # orders (the kernel: per-block tree then a double-precision pass; torch:
 # its own reduction tree), hence relative limits.
@@ -441,11 +457,13 @@ def phase_build():
 
 
 def phase_k1(device):
-    """K1 against crf_iteration_reference on the card.  Returns the worst
-    error, the slice shape's numbers and every shape's (the kernel that
-    ran, its error, times and bound)."""
+    """K1 against crf_iteration_reference on the card, and beside it the
+    simple form of each size (the generic kernel, or the simple wide
+    kernel past 16 classes), timed in turns.  Returns the worst error, the
+    slice shape's numbers and every shape's (the kernel that ran, its
+    error, times and bound)."""
     from pylc_tpu_torch.ops.kernels.crf_kernel import (
-        TILED_SIZES, crf_iteration, crf_iteration_generic,
+        TILED_SIZES, WIDE_MAX_RADIUS, crf_iteration, crf_iteration_generic,
         crf_iteration_reference, variant)
     sig = (3.0, 13.0, 1.5, 3.0, 1.0, 1e-8)
     worst, at_slice, checked = 0.0, None, []
@@ -463,26 +481,21 @@ def phase_k1(device):
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         generic_err = (generic - want).abs().max().item()
-        if name == "wide":  # the only kernel for these sizes
-            ms, generic_ms = graph_ms(
-                lambda: crf_iteration(q, g, u, r, *sig), 50), None
-        else:
-            generic_ms, ms = in_turns(
-                lambda: crf_iteration_generic(q, g, u, r, *sig),
-                lambda: crf_iteration(q, g, u, r, *sig), 50)
+        generic_ms, ms = in_turns(
+            lambda: crf_iteration_generic(q, g, u, r, *sig),
+            lambda: crf_iteration(q, g, u, r, *sig), 50)
         host_ms = cuda_ms(lambda: crf_iteration(q, g, u, r, *sig), 50)
         plain_ms = cuda_ms(lambda: crf_iteration_reference(q, g, u, r, *sig),
                            10)
         bound_ms, bound_by = k1_bound(C, G, H, W, r)
-        beside = "" if generic_ms is None else \
-            f", generic kernel {generic_ms:.4f} ms/iter (max_abs_err " \
-            f"{generic_err:.3e})"
+        simple = "generic kernel" if C <= 16 else "simple wide kernel"
         log(f"[k1] C={C} G={G} {H}x{W} r={r}: {name} max_abs_err {err:.3e} "
             f"(limit {K1_ATOL:g}); kernel {ms:.4f} ms/iter from a graph, "
             f"{host_ms:.4f} from a host loop, plain {plain_ms:.4f} "
-            f"ms/iter{beside}; bound {bound_ms:.4f} ms by {bound_by}, share "
-            f"{bound_ms / ms:.3f}")
-        for what, e in (("K1", err), ("K1's generic kernel", generic_err)):
+            f"ms/iter, {simple} {generic_ms:.4f} ms/iter (max_abs_err "
+            f"{generic_err:.3e}); bound {bound_ms:.4f} ms by {bound_by}, "
+            f"share {bound_ms / ms:.3f}")
+        for what, e in (("K1", err), (f"K1's {simple}", generic_err)):
             if not e <= K1_ATOL:
                 raise AssertionError(f"{what} disagrees with its plain "
                                      f"version: {e} > {K1_ATOL}")
@@ -497,8 +510,9 @@ def phase_k1(device):
     if not at_slice["variant"].startswith("tiled"):
         raise AssertionError(f"the slice's shape ran {at_slice['variant']}, "
                              "not a tiled instantiation")
-    missing = ({variant(*size) for size in TILED_SIZES} | {"wide"}) \
-        - {c["variant"] for c in checked}
+    must = {variant(*size) for size in TILED_SIZES} | {"wide-simple"} | {
+        f"wide<R={r}>" for r in range(WIDE_MAX_RADIUS + 1)}
+    missing = must - {c["variant"] for c in checked}
     if missing:
         raise AssertionError(f"kernels of K1 that no shape launched: "
                              f"{sorted(missing)}")
@@ -538,6 +552,7 @@ def phase_k2(device):
         # each side's backward from its own forward: a fault of K2a that
         # reaches the gradient shows in dlogits too
         dx = fused_loss_backward(x, t, cw, acc, ct, w)
+        dx_again = fused_loss_backward(x, t, cw, acc, ct, w)
         dx_direct = fused_loss_backward_direct(x, t, cw, acc, ct, w)
         dx_ref = fused_backward_reference(x, t, cw, acc_ref, ct, w)
         torch.cuda.synchronize()
@@ -548,6 +563,10 @@ def phase_k2(device):
             raise AssertionError(f"two launches of K2a on the same input "
                                  f"differ: {acc.tolist()} vs "
                                  f"{acc_again.tolist()}")
+        if not torch.equal(dx, dx_again):
+            raise AssertionError("two launches of K2b on the same input "
+                                 "differ")
+        del dx_again
         fwd_name, name = forward_variant(x), backward_variant(x)
         lib = fl._library()
         codes = {"K2a": (lib.fused_loss_forward_variant(C), fwd_name),
@@ -587,7 +606,8 @@ def phase_k2(device):
             f" max_abs_err {loss_err:.3e} max_rel_err {loss_rel:.3e} "
             f"(limit {K2_LOSS_RTOL:g}); statistics ({3 * C + 4} entries) "
             f"max_rel_err {acc_rel:.3e} (limit {K2_ACC_RTOL:g} each), two "
-            f"launches bit-equal; dlogits max_abs_err {dx_err:.3e} at max "
+            f"launches bit-equal (K2a and K2b); dlogits max_abs_err "
+            f"{dx_err:.3e} at max "
             f"|dx| {dx_scale:.3e} (limit {K2_DX_RTOL:g} x max)")
         # launches back to back on one input: what of the logits fits the
         # 50 MB L2 is read from there
@@ -633,10 +653,12 @@ def phase_k2(device):
             numbers["bwd"], shape=shape, max_abs_err=dx_err,
             share_of_bound=bwd_bound / bwd_ms))
         # the direct kernel of this class count, run beside whatever the
-        # layout gets and held to the same limit (a wide C has one kernel)
+        # layout gets and held to the same limit (the wide direct kernel
+        # past 16 classes)
         if name != "wide":
+            code = fl.backward_variant_code(x)
             checked["bwd"].append({
-                "variant": fl.VARIANTS[min(1, fl.backward_variant_code(x))
+                "variant": fl.VARIANTS[3 if code == 4 else min(1, code)
                                        ].format(C=C),
                 "shape": shape, "max_abs_err": direct_err, "ms": direct_ms,
                 "bound_ms": bwd_bound, "bound_by": bwd_by,
@@ -649,7 +671,7 @@ def phase_k2(device):
                              f"K2b {ran[1]}, not the compile-time class "
                              "count and the staged kernel")
     for what, must, key in (("K2a", K2A_MUST_RUN | {"wide"}, "fwd"),
-                            ("K2b", K2B_MUST_RUN | {"wide"}, "bwd")):
+                            ("K2b", K2B_MUST_RUN, "bwd")):
         missing = must - {c["variant"] for c in checked[key]}
         if missing:
             raise AssertionError(f"compile-time instantiations of {what} "
@@ -960,10 +982,10 @@ def phase_wide(device, workdir):
     photo = np.random.default_rng(61).integers(0, 255, (*WIDE_PHOTO_HW, 3),
                                                dtype=np.uint8)
     launches, _, _ = drive_photo(f"[wide] photo {WIDE_CLASSES} classes:", cfg,
-                                 model, device, photo, N_PHOTOS, "wide")
+                                 model, device, photo, N_PHOTOS, "wide<")
     k2a, k2b, _, _, _ = zoo_train_steps(
         f"deeplab/resnet {WIDE_CLASSES} classes", cfg, model, device,
-        "[wide]", ("wide", "wide"))
+        "[wide]", ("wide", "wide-staged"))
     return launches, (k2a, k2b)
 
 

@@ -1,7 +1,8 @@
 """Checkpointing and loss tracking.
 
 Port of ``pylc_tpu/checkpoint.py``.  ``RunningLoss`` is the same code,
-with the same ``losses.json``.  ``Checkpoint`` keeps the atomic writes
+with the same ``losses.json``, which in a process group rank 0 alone
+touches (``owner``).  ``Checkpoint`` keeps the atomic writes
 (tmp + ``os.replace``) but writes torch files:
 
   - ``checkpoint.pth``: {epoch, iter, model, optimizer, scheduler, meta},
@@ -110,9 +111,16 @@ class Checkpoint:
 
 
 class RunningLoss:
-    """Interval-averaged loss tracker with best-dice checkpoint gating."""
+    """Interval-averaged loss tracker with best-dice checkpoint gating.
 
-    def __init__(self, model_id: str, save_dir: str, resume: bool = False):
+    ``owner``: this process keeps ``losses.json``.  In a process group
+    only rank 0 does; another rank's tracker averages its own metrics but
+    never reads, removes or writes the file (every rank removing a stale
+    log raced: the second to reach it raised ``FileNotFoundError``)."""
+
+    def __init__(self, model_id: str, save_dir: str, resume: bool = False,
+                 owner: bool = True):
+        self.owner = owner
         self.train = []
         self.valid = []
         self.intv = []
@@ -125,7 +133,7 @@ class RunningLoss:
         self.model_dir = os.path.join(save_dir, model_id)
         os.makedirs(self.model_dir, exist_ok=True)
         self.log_file = os.path.join(self.model_dir, "losses.json")
-        if os.path.exists(self.log_file):
+        if owner and os.path.exists(self.log_file):
             if resume:
                 with open(self.log_file) as f:
                     d = json.load(f)
@@ -171,6 +179,9 @@ class RunningLoss:
                 self.best_dice = self.avg_dice
 
     def save(self):
+        if not self.owner:
+            raise RuntimeError("RunningLoss.save: only the owner (rank 0) "
+                               "writes losses.json")
         blob = json.dumps({
             "train": self.train, "valid": self.valid,
             "best_dice": self.best_dice, "lr": self.lr,

@@ -27,7 +27,7 @@
 // (2C FFMA, the guide distance, expf), ~1,600 per pixel, 0.10 ms at one
 // instruction per scheduler and clock.
 //
-// Two kernels:
+// Up to 16 classes, two kernels:
 //
 // crf_tiled_kernel<C, G, R>, for the sizes the package uses (the list is
 // in crf_iteration_f32 below).  C, G and R are compile-time, so the class
@@ -73,24 +73,51 @@
 // before the tiled one (0.73 ms at the serving shape against the tiled
 // kernel's time in PERF.md).
 //
-// crf_wide_kernel, for 17 to 128 classes (the JAX package's Pallas kernel
-// takes any C; its fused loss stops at 128, and so does this source), G <= 4,
-// r <= 8: one thread per pixel, runtime sizes.  The generic kernel cannot
-// simply take a larger C: it holds 2C accumulators per thread in registers
-// (at 128 they would spill) and stages the q window of every class in
-// shared memory ([C][8 + 2r][32 + 2r] floats: 272 KB at C = 128, r = 3,
-// over the 227 KB a block can have).  So the wide kernel walks the classes
-// in chunks of kChunk = 16: per chunk it stages that chunk's q window beside
-// the guide's (staged once), recomputes the pixel's bilateral weights (the
-// window's expf, once per chunk: cheaper than 48 to 288 weights per pixel in
-// shared memory), writes the chunk's logits to `out` and keeps a running
-// max; a second pass over `out` turns the logits into the softmax in place.
-// Its shared memory is (16 + G)(8 + 2r)(32 + 2r) floats whatever C is
-// (92 KB at G = 4, r = 8), so the chunking would lift the class bound
-// further, but not the radius: r stays <= 8 (the spatial tables are
-// (2 kMaxR + 1)^2 entries of static shared memory).  It is the simple form:
-// at C = 128 it reads the guide window and does the window's exps 8 times,
-// and the softmax pass reads and writes `out` once more.
+// For 17 to 128 classes (the JAX package's Pallas kernel takes any C; its
+// fused loss stops at 128, and so does this source), G <= 4, two kernels.
+// Neither can hold a pixel's 2C accumulators in registers or the q window
+// of every class in shared memory (272 KB at C = 128, r = 3), so both walk
+// the classes in chunks.
+//
+// crf_wide_kernel<R>, for r <= kWideMaxR = 5 (R compile-time, C and G at
+// run time).  At C = 20 on the slice's grid one iteration must move
+// (3C + G) H W 4 B = 0.46 GB (0.138 ms at 3.35 TB/s); its work is 48
+// products per pixel and class.  What its design does:
+//   - the window's weights once per launch, in registers: thread (part,
+//     strip) holds a strip of 4 pixels and a pair of window rows (the
+//     parts of a block cover the window), and turns its 2 x 7 x 4 bilateral
+//     weights into the coefficients w_app a / (wsum + eps) + w_sm s of
+//     q(x + d) in the logit once wsum is summed over the parts.  A message
+//     is then one FMA per pixel, offset and class, and the exps are made
+//     once whatever C is (the simple form made them once per chunk).
+//   - the classes in chunks of kWideK = 4 with compile-time width: a chunk
+//     past C is zero-filled in shared memory, so the class loop unrolls
+//     with no predicate.  The q windows of kWideStages = 4 chunks are in
+//     flight at a time (cp.async, a ring of slots; 16-byte chunks, clamped
+//     scalar loads only at the image's edge), one barrier per chunk.
+//   - the tile's logits stay in shared memory: u arrives by cp.async into
+//     the logits' rows with its chunk, part 0 adds its sums and the other
+//     parts' (written to shared memory by parity of the chunk) onto it,
+//     and the softmax is taken there; `out` is written once, each class's
+//     tile row one coalesced store per warp, and u is read once.
+//   - a 32 x 8 tile (4 rows on a grid of fewer blocks than the card has
+//     SMs), 64 strips x 4 parts = 256 threads at r = 3: 128 registers, two
+//     blocks an SM (__launch_bounds__), 80,896 B of shared memory at C = 20.
+// Measured at C = 20, G = 3, 1024x1792, r = 3 on an H100 80GB HBM3 at
+// 700 W (chip_smoke.py's [k1], 50 launches replayed from a CUDA graph):
+// 0.533 ms against 1.47 ms for the simple form on the same tensors in
+// turns; 0.68 ms against 1.25 at C = 128 on 512x512.  Tried on the same
+// card and not kept: the weights in shared memory (48 KB at r = 3) with two
+// FMAs per term, 0.745 ms (shared-memory loads bound it); the same at
+// 128 threads, 1.18 ms.
+//
+// crf_wide_simple_kernel, for r > kWideMaxR (its coefficients would not
+// fit in registers): one thread per pixel, the form the wide kernel had
+// first.  Per chunk of kChunk = 16 classes it stages that chunk's q window
+// beside the guide's (staged once), recomputes the pixel's weights, writes
+// the chunk's logits to `out` and keeps a running max; a second pass over
+// `out` turns the logits into the softmax in place.  Its shared memory is
+// (16 + G)(8 + 2r)(32 + 2r) floats whatever C is (92 KB at G = 4, r = 8).
 
 #include <cuda_runtime.h>
 
@@ -367,35 +394,49 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int C, int G, int R>
-int launch_tiled(const Args& a) {
-  SpatialTable tab;
-  for (int dy = 0; dy <= kTabR; ++dy) {
-    for (int dx = 0; dx <= kTabR; ++dx) {
+// exp(-(dy^2 + dx^2) / 2 sigma^2) for the appearance and smoothness
+// kernels by |dy|, |dx| < N, computed in double and rounded once, as Python
+// computes them for the Pallas kernel; the centre's entries are 0.
+template <int N, class Table>
+Table spatial_table(const Args& a) {
+  Table tab;
+  for (int dy = 0; dy < N; ++dy) {
+    for (int dx = 0; dx < N; ++dx) {
       const double d2 = static_cast<double>(dy * dy + dx * dx);
       const bool centre = dy == 0 && dx == 0;
-      tab.app[dy * (kTabR + 1) + dx] =
+      tab.app[dy * N + dx] =
           centre ? 0.f : static_cast<float>(std::exp(-d2 * a.inv2_sp_app));
-      tab.sm[dy * (kTabR + 1) + dx] =
+      tab.sm[dy * N + dx] =
           centre ? 0.f : static_cast<float>(std::exp(-d2 * a.inv2_sp_sm));
     }
   }
+  return tab;
+}
+
+// 1 if every row of every operand is whole 16-byte chunks: W a multiple of
+// 4 and the pointers 16-byte aligned.
+int rows_vectorize(const Args& a) {
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  return a.W % 4 == 0 && aligned(a.q) && aligned(a.g) && aligned(a.u) &&
+         aligned(a.out);
+}
+
+template <int C, int G, int R>
+int launch_tiled(const Args& a) {
+  const auto tab = spatial_table<kTabR + 1, SpatialTable>(a);
   constexpr size_t smem =
       static_cast<size_t>(C + G) * (kTY + 2 * R) * kSW * sizeof(float);
   const cudaError_t e = cudaFuncSetAttribute(
       crf_tiled_kernel<C, G, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  const auto aligned = [](const void* p) {
-    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-  };
-  const int vec = a.W % 4 == 0 && aligned(a.q) && aligned(a.g) &&
-                  aligned(a.u) && aligned(a.out);
   const dim3 block(kThreadsX, kTY);
   const dim3 grid((a.W + kTX - 1) / kTX, (a.H + kTY - 1) / kTY);
   crf_tiled_kernel<C, G, R><<<grid, block, smem, a.stream>>>(
       a.q, a.g, a.u, a.out, a.H, a.W, tab, -a.inv2_col, a.w_app, a.w_sm,
-      a.eps, vec);
+      a.eps, rows_vectorize(a));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -518,10 +559,14 @@ crf_generic_kernel(const float* __restrict__ q, const float* __restrict__ g,
   }
 }
 
+// Static shared memory of the generic and simple wide kernels (their
+// spatial tables): a launch above 48 KB in all must opt in.
+constexpr size_t kTablesBytes = 2 * kMaxWin * sizeof(float);
+
 int launch_generic(const Args& a, int C, int G, int r) {
   const size_t smem = static_cast<size_t>(C + G) * (kGenY + 2 * r) *
                       (kGenX + 2 * r) * sizeof(float);
-  if (smem > 48 * 1024) {
+  if (smem + kTablesBytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         crf_generic_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
@@ -536,13 +581,14 @@ int launch_generic(const Args& a, int C, int G, int r) {
 }
 
 // --------------------------------------------------------------------- //
-// wide kernel: runtime sizes, classes in chunks, one thread per pixel
+// simple wide kernel: runtime sizes, classes in chunks, one thread per
+// pixel, the window's weights once per chunk
 // --------------------------------------------------------------------- //
 
 constexpr int kChunk = kGenericC;  // classes staged and held at a time
 
 __global__ void __launch_bounds__(kGenX * kGenY)
-crf_wide_kernel(const float* __restrict__ q, const float* __restrict__ g,
+crf_wide_simple_kernel(const float* __restrict__ q, const float* __restrict__ g,
                 const float* __restrict__ u, float* __restrict__ out, int C,
                 int G, int H, int W, int r, double inv2_sp_app,
                 float inv2_col, double inv2_sp_sm, float w_app, float w_sm,
@@ -665,20 +711,429 @@ crf_wide_kernel(const float* __restrict__ q, const float* __restrict__ g,
   }
 }
 
-int launch_wide(const Args& a, int C, int G, int r) {
+int launch_wide_simple(const Args& a, int C, int G, int r) {
   const size_t smem = static_cast<size_t>(kChunk + G) * (kGenY + 2 * r) *
                       (kGenX + 2 * r) * sizeof(float);
-  if (smem > 48 * 1024) {
+  if (smem + kTablesBytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        crf_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        crf_wide_simple_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const dim3 block(kGenX, kGenY);
   const dim3 grid((a.W + kGenX - 1) / kGenX, (a.H + kGenY - 1) / kGenY);
-  crf_wide_kernel<<<grid, block, smem, a.stream>>>(
+  crf_wide_simple_kernel<<<grid, block, smem, a.stream>>>(
       a.q, a.g, a.u, a.out, C, G, a.H, a.W, r, a.inv2_sp_app, a.inv2_col,
       a.inv2_sp_sm, a.w_app, a.w_sm, a.eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// --------------------------------------------------------------------- //
+// wide kernel: 17 to 128 classes, the weights once, the logits on chip
+// --------------------------------------------------------------------- //
+
+constexpr int kWideTX = 32;                  // tile columns
+constexpr int kWideStripsX = kWideTX / kPX;  // strips of kPX pixels a row
+constexpr int kWideK = 4;                    // classes per staged chunk
+constexpr int kWideStages = 4;               // chunks staged at a time
+constexpr int kWideRows = 2;                 // window rows per thread
+constexpr int kWideMaxR = 5;                 // largest radius it takes
+constexpr int kWideTY = 8;                   // tile rows (kWideSmallTY on a
+constexpr int kWideSmallTY = 4;              // grid of fewer blocks than SMs)
+
+// exp(-(dy^2 + dx^2) / 2 sigma^2) by |dy|, |dx| <= kWideMaxR; the centre's
+// entries are 0
+struct WideTable {
+  float app[(kWideMaxR + 1) * (kWideMaxR + 1)];
+  float sm[(kWideMaxR + 1) * (kWideMaxR + 1)];
+};
+
+template <int R>
+constexpr int kWidePad = (R + 3) / 4 * 4;     // x halo, whole float4s
+template <int R>
+constexpr int kWideSW = kWideTX + 2 * kWidePad<R>;  // staged row, floats
+template <int R>
+constexpr int kWideParts = (2 * R + 1 + 1) / kWideRows;  // row pairs
+// threads of a full-height tile: a strip of kPX pixels by a row pair
+template <int R>
+constexpr int kWideThreads = kWideStripsX * kWideTY * kWideParts<R>;
+// blocks an SM should hold: two up to r = 3 (at most 128 registers)
+template <int R>
+constexpr int kWideMinBlocks = R <= 3 ? 2 : 1;
+// floats of the parts' sums: two chunks' of parts 1.., or first the wsums
+template <int R>
+constexpr int kWideSums = 2 * (kWideParts<R> - 1) * kWideK > kWideParts<R>
+                              ? 2 * (kWideParts<R> - 1) * kWideK
+                              : kWideParts<R>;
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Stage rows [y0, y0 + SH) and columns [x0, x0 + SW) of the first n_live
+// of n_ch channel planes of `src` into dst ([n_ch][SH][SW]), replicating
+// the edges by clamping; planes n_live .. n_ch - 1 are zero-filled.  Whole
+// 16-byte chunks inside the image go by cp.async (the caller commits).
+template <int SW>
+__device__ __forceinline__ void stage_planes(float* __restrict__ dst,
+                                             const float* __restrict__ src,
+                                             int n_ch, int n_live, int SH,
+                                             int y0, int x0, int H, int W,
+                                             size_t HW, bool vec) {
+  constexpr int kRowChunks = SW / 4;
+  const int per_plane = SH * kRowChunks;
+  for (int ch = 0; ch < n_ch; ++ch) {
+    float* plane = dst + ch * SH * SW;
+    for (int i = threadIdx.x; i < per_plane; i += blockDim.x) {
+      const int sy = i / kRowChunks;  // a compile-time divisor
+      const int cx = i - sy * kRowChunks;
+      float* d = plane + sy * SW + 4 * cx;
+      if (ch >= n_live) {
+        *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+        continue;
+      }
+      const int gy = min(max(y0 + sy, 0), H - 1);
+      const int gx = x0 + 4 * cx;
+      const float* s = src + ch * HW + static_cast<size_t>(gy) * W;
+      if (vec && gx >= 0 && gx + 3 < W) {
+        cp_async_16(d, s + gx);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) d[k] = s[min(max(gx + k, 0), W - 1)];
+      }
+    }
+  }
+}
+
+// Chunk kc's q window into `buf` and its u tile into its rows of the
+// logits (the messages are added onto u there).
+template <int SW>
+__device__ __forceinline__ void stage_chunk(float* __restrict__ buf,
+                                            float* __restrict__ sl,
+                                            const float* __restrict__ q,
+                                            const float* __restrict__ u,
+                                            int kc, int C, int TY, int SH,
+                                            int y0, int x0, int by0, int bx0,
+                                            int H, int W, size_t HW,
+                                            bool vec) {
+  const int c0 = kc * kWideK;
+  const int live = min(C - c0, kWideK);
+  stage_planes<SW>(buf, q + c0 * HW, kWideK, live, SH, y0, x0, H, W, HW,
+                   vec);
+  stage_planes<kWideTX>(sl + c0 * kWideTX * TY, u + c0 * HW, live, live, TY,
+                        by0, bx0, H, W, HW, vec);
+}
+
+// Part 0 of the block: the logits of chunk kc for its strip, its own sums
+// (acc) and the other parts' (sums of that chunk's parity) added onto u.
+template <int R>
+__device__ __forceinline__ void wide_finalize(
+    const float (&acc)[kPX][kWideK], float* __restrict__ sl,
+    const float* __restrict__ sums, int kc, int C, int P, int spx) {
+#pragma unroll
+  for (int c = 0; c < kWideK; ++c) {
+    const int cls = kc * kWideK + c;
+    if (cls < C) {
+      float o[kPX] = {acc[0][c], acc[1][c], acc[2][c], acc[3][c]};
+#pragma unroll
+      for (int j = 1; j < kWideParts<R>; ++j) {
+        const float4 t = *reinterpret_cast<const float4*>(
+            sums + ((j - 1) * kWideK + c) * P + spx);
+        o[0] += t.x; o[1] += t.y; o[2] += t.z; o[3] += t.w;
+      }
+      float4* slot = reinterpret_cast<float4*>(sl + cls * P + spx);
+      const float4 l = *slot;  // u
+      *slot = make_float4(l.x + o[0], l.y + o[1], l.z + o[2], l.w + o[3]);
+    }
+  }
+}
+
+// The tile is kWideTX x TY pixels (TY = kWideTY, or kWideSmallTY when the
+// grid would have fewer blocks than the card has SMs).  Thread (part,
+// strip) holds kPX pixels of one row of the tile and window rows
+// [kWideRows part, kWideRows (part + 1)).  Shared memory, floats: the
+// logits [classes rounded up to kWideK][P]; the parts' sums, kWideSums<R>
+// rows of P (first each part's wsums, then the sums of parts 1.. for two
+// chunks, by parity); then kWideStages q chunks [kWideK][SH][SW] in a
+// ring, chunk k in slot k % kWideStages (the guide's window [G][SH][SW] in
+// the last slot until the coefficients are made); P = kWideTX TY,
+// SH = TY + 2R.
+template <int R>
+__global__ void __launch_bounds__(kWideThreads<R>, kWideMinBlocks<R>)
+crf_wide_kernel(const float* __restrict__ q, const float* __restrict__ g,
+                const float* __restrict__ u, float* __restrict__ out, int C,
+                int G, int H, int W, int TY, const WideTable tab,
+                float neg_inv2_col, float w_app, float w_sm, float eps,
+                int vec) {
+  constexpr int kSide = 2 * R + 1;
+  constexpr int kPadW = kWidePad<R>;
+  constexpr int SW = kWideSW<R>;
+  constexpr int kNV = kPX + 2 * kPadW;     // floats a strip reads per row
+  constexpr int kParts = kWideParts<R>;
+  constexpr int kTab = kWideMaxR + 1;
+  const int P = kWideTX * TY;
+  const int SH = TY + 2 * R;
+  const int plane = SH * SW;
+  const int n_chunks = (C + kWideK - 1) / kWideK;
+  extern __shared__ __align__(16) float smem[];
+  float* sl = smem;                              // [n_chunks kWideK][P]
+  float* sums = sl + n_chunks * kWideK * P;      // [kWideSums<R>][P]
+  float* ring = sums + kWideSums<R> * P;         // [kWideStages][kWideK]..
+  const int slot_floats = kWideK * plane;
+
+  const int tid = threadIdx.x;
+  const int bx0 = blockIdx.x * kWideTX, by0 = blockIdx.y * TY;
+  const int y0 = by0 - R, x0 = bx0 - kPadW;
+  const size_t HW = static_cast<size_t>(H) * W;
+  const bool vecb = vec != 0;
+  const int strips = kWideStripsX * TY;   // whole warps
+  const int part = tid / strips;
+  const int st = tid - part * strips;
+  const int sy = st / kWideStripsX, sx = st - sy * kWideStripsX;
+  const int spx = sy * kWideTX + kPX * sx;   // the strip's first pixel
+
+  // the guide's window into the last slot, chunks 0 .. kWideStages - 2
+  // into the others: they stay in flight while the coefficients are made
+  float* gw = ring + (kWideStages - 1) * slot_floats;
+  stage_planes<SW>(gw, g, G, G, SH, y0, x0, H, W, HW, vecb);
+  cp_async_commit();
+#pragma unroll
+  for (int k = 0; k < kWideStages - 1; ++k) {
+    if (k < n_chunks) {
+      stage_chunk<SW>(ring + k * slot_floats, sl, q, u, k, C, TY, SH, y0, x0,
+                      by0, bx0, H, W, HW, vecb);
+    }
+    cp_async_commit();
+  }
+  cp_async_wait<kWideStages - 1>();
+  __syncthreads();
+
+  // each pixel's bilateral weights of this part's window rows, once, in
+  // registers: gc the strip's guide, aw the weights
+  float gc[kMaxG][kPX];
+#pragma unroll
+  for (int j = 0; j < kMaxG; ++j) {
+    if (j < G) {
+      const float4 t = *reinterpret_cast<const float4*>(
+          gw + j * plane + (sy + R) * SW + kPadW + kPX * sx);
+      gc[j][0] = t.x; gc[j][1] = t.y; gc[j][2] = t.z; gc[j][3] = t.w;
+    }
+  }
+  float aw[kWideRows][kPX][kSide];
+  float wsum[kPX] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int r2 = 0; r2 < kWideRows; ++r2) {
+    const int wy = kWideRows * part + r2;
+    const int ady = wy < R ? R - wy : wy - R;
+#pragma unroll
+    for (int p = 0; p < kPX; ++p) {
+#pragma unroll
+      for (int k = 0; k < kSide; ++k) aw[r2][p][k] = 0.f;
+    }
+    if (wy < kSide) {  // the last part of an odd window has one row
+#pragma unroll
+      for (int j = 0; j < kMaxG; ++j) {
+        if (j < G) {
+          float v[kNV];
+          const float* row = gw + j * plane + (sy + wy) * SW + kPX * sx;
+#pragma unroll
+          for (int i = 0; i < kNV / 4; ++i) {
+            const float4 t = *reinterpret_cast<const float4*>(row + 4 * i);
+            v[4 * i] = t.x; v[4 * i + 1] = t.y; v[4 * i + 2] = t.z;
+            v[4 * i + 3] = t.w;
+          }
+#pragma unroll
+          for (int p = 0; p < kPX; ++p) {
+#pragma unroll
+            for (int k = 0; k < kSide; ++k) {
+              const float d = gc[j][p] - v[kPadW + p + k - R];
+              aw[r2][p][k] += d * d;
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int p = 0; p < kPX; ++p) {
+#pragma unroll
+        for (int k = 0; k < kSide; ++k) {
+          const int adx = k < R ? R - k : k - R;
+          aw[r2][p][k] = tab.app[ady * kTab + adx] *
+                         expf(aw[r2][p][k] * neg_inv2_col);
+          wsum[p] += aw[r2][p][k];
+        }
+      }
+    }
+  }
+  *reinterpret_cast<float4*>(sums + part * P + spx) =
+      make_float4(wsum[0], wsum[1], wsum[2], wsum[3]);
+  __syncthreads();  // the wsums are in
+
+  // coefficient of q(x + d) in the logit: w_app a / (wsum + eps) + w_sm s
+  {
+    float den[kPX] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int k = 0; k < kParts; ++k) {  // the parts' wsums, in row order
+      const float4 t = *reinterpret_cast<const float4*>(sums + k * P + spx);
+      den[0] += t.x; den[1] += t.y; den[2] += t.z; den[3] += t.w;
+    }
+#pragma unroll
+    for (int p = 0; p < kPX; ++p) den[p] = w_app / (den[p] + eps);
+#pragma unroll
+    for (int r2 = 0; r2 < kWideRows; ++r2) {
+      const int wy = kWideRows * part + r2;
+      const int ady = wy < R ? R - wy : wy - R;
+#pragma unroll
+      for (int p = 0; p < kPX; ++p) {
+#pragma unroll
+        for (int k = 0; k < kSide; ++k) {
+          const int adx = k < R ? R - k : k - R;
+          aw[r2][p][k] = aw[r2][p][k] * den[p] +
+                         w_sm * tab.sm[ady * kTab + adx];
+        }
+      }
+    }
+  }
+
+  // the messages: one FMA per pixel, offset and class
+  float acc[kPX][kWideK];
+  for (int k = 0; k < n_chunks; ++k) {
+    cp_async_wait<kWideStages - 2>();  // chunk k has landed
+    // every thread is past chunk k - 1 (its slot is free) and past the
+    // wsums; the other parts' sums of chunk k - 1 are in
+    __syncthreads();
+    const int next = k + kWideStages - 1;
+    if (next < n_chunks) {
+      stage_chunk<SW>(ring + (next % kWideStages) * slot_floats, sl, q, u,
+                      next, C, TY, SH, y0, x0, by0, bx0, H, W, HW, vecb);
+    }
+    cp_async_commit();
+    if (part == 0 && k > 0) {
+      wide_finalize<R>(acc, sl, sums + ((k - 1) & 1) * (kParts - 1) *
+                                          kWideK * P,
+                       k - 1, C, P, spx);
+    }
+    const float* cur = ring + (k % kWideStages) * slot_floats;
+#pragma unroll
+    for (int p = 0; p < kPX; ++p) {
+#pragma unroll
+      for (int c = 0; c < kWideK; ++c) acc[p][c] = 0.f;
+    }
+#pragma unroll
+    for (int r2 = 0; r2 < kWideRows; ++r2) {
+      const int wy = kWideRows * part + r2;
+      if (wy < kSide) {
+        const float* row = cur + (sy + wy) * SW + kPX * sx;
+#pragma unroll
+        for (int c = 0; c < kWideK; ++c) {
+          float v[kNV];
+#pragma unroll
+          for (int i = 0; i < kNV / 4; ++i) {
+            const float4 t = *reinterpret_cast<const float4*>(
+                row + c * plane + 4 * i);
+            v[4 * i] = t.x; v[4 * i + 1] = t.y; v[4 * i + 2] = t.z;
+            v[4 * i + 3] = t.w;
+          }
+#pragma unroll
+          for (int p = 0; p < kPX; ++p) {
+#pragma unroll
+            for (int k2 = 0; k2 < kSide; ++k2) {
+              acc[p][c] += aw[r2][p][k2] * v[kPadW + p + k2 - R];
+            }
+          }
+        }
+      }
+    }
+    if (part > 0) {  // this part's sums, for part 0
+      float* mine = sums + ((k & 1) * (kParts - 1) + part - 1) * kWideK * P;
+#pragma unroll
+      for (int c = 0; c < kWideK; ++c) {
+        *reinterpret_cast<float4*>(mine + c * P + spx) =
+            make_float4(acc[0][c], acc[1][c], acc[2][c], acc[3][c]);
+      }
+    }
+  }
+  __syncthreads();
+  if (part == 0) {
+    wide_finalize<R>(acc, sl, sums + ((n_chunks - 1) & 1) * (kParts - 1) *
+                                         kWideK * P,
+                     n_chunks - 1, C, P, spx);
+  }
+  __syncthreads();
+
+  // softmax over the classes, a pixel per thread; each class's row of the
+  // tile goes out as one coalesced store per warp
+  for (int px = tid; px < P; px += blockDim.x) {
+    float mx = -INFINITY;
+    for (int c = 0; c < C; ++c) mx = fmaxf(mx, sl[c * P + px]);
+    float total = 0.f;
+    for (int c = 0; c < C; ++c) {
+      const float e = expf(sl[c * P + px] - mx);
+      sl[c * P + px] = e;
+      total += e;
+    }
+    const int py = by0 + px / kWideTX, pxx = bx0 + px % kWideTX;
+    if (py < H && pxx < W) {
+      float* o = out + static_cast<size_t>(py) * W + pxx;
+      for (int c = 0; c < C; ++c) o[c * HW] = sl[c * P + px] / total;
+    }
+  }
+}
+
+// Bytes of shared memory crf_wide_kernel takes at C classes, radius r and
+// ty tile rows.
+constexpr size_t wide_smem_bytes(int C, int r, int ty) {
+  return sizeof(float) *
+         (static_cast<size_t>(
+              (C + kWideK - 1) / kWideK * kWideK +
+              ((2 * r + 2) / kWideRows > 1
+                   ? 2 * ((2 * r + 2) / kWideRows - 1) * kWideK
+                   : 1)) *
+              kWideTX * ty +
+          static_cast<size_t>(kWideStages * kWideK) * (ty + 2 * r) *
+              (kWideTX + 2 * ((r + 3) / 4 * 4)));
+}
+static_assert(wide_smem_bytes(kMaxC, kWideMaxR, kWideTY) <= 232448,
+              "the largest sizes must fit a block's shared memory");
+
+// Whether more than kGenericC classes at radius r run on crf_wide_kernel
+// (a radius it is built for), else on the simple wide kernel.
+bool wide_fits(int r) { return r <= kWideMaxR; }
+
+template <int R>
+int launch_wide(const Args& a, int C, int G) {
+  const auto tab = spatial_table<kWideMaxR + 1, WideTable>(a);
+  static int n_sm = 0;  // the card's SMs, read once
+  if (n_sm == 0) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) {
+      e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    }
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int cols = (a.W + kWideTX - 1) / kWideTX;
+  const int ty = cols * ((a.H + kWideTY - 1) / kWideTY) < n_sm
+                     ? kWideSmallTY : kWideTY;
+  const size_t smem = wide_smem_bytes(C, R, ty);
+  cudaError_t e = cudaFuncSetAttribute(
+      crf_wide_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e == cudaSuccess) {  // the most shared memory: two blocks an SM fit
+    e = cudaFuncSetAttribute(crf_wide_kernel<R>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(cols, (a.H + ty - 1) / ty);
+  crf_wide_kernel<R><<<grid, kWideStripsX * ty * kWideParts<R>, smem,
+                       a.stream>>>(
+      a.q, a.g, a.u, a.out, C, G, a.H, a.W, ty, tab, -a.inv2_col, a.w_app,
+      a.w_sm, a.eps, rows_vectorize(a));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -699,12 +1154,19 @@ extern "C" int crf_iteration_is_tiled(int C, int G, int r) {
 
 extern "C" int crf_iteration_max_classes() { return kMaxC; }
 
+// 1 if C > kGenericC classes at radius r run on crf_wide_kernel, 0 if on
+// the simple wide kernel (no room for the weights and logits).
+extern "C" int crf_iteration_wide_fits(int C, int r) {
+  return C > kGenericC && wide_fits(r) ? 1 : 0;
+}
+
 // C entry for ctypes.  Returns a cudaError_t: the launch's own error (a
 // refused configuration never runs, and a later synchronize would not
 // report it), or cudaErrorInvalidValue for sizes outside the bounds above.
-// More than kGenericC classes run on the wide kernel; within that,
-// generic != 0 takes the generic kernel whatever the sizes (to time one
-// against the other).
+// More than kGenericC classes run on the wide kernel where it has room,
+// else on the simple wide kernel.  generic != 0 takes the simple form
+// whatever the sizes (the generic kernel, or the simple wide kernel above
+// kGenericC classes), to time one against the other.
 extern "C" int crf_iteration_f32(const float* q, const float* g,
                                  const float* u, float* out, int C, int G,
                                  int H, int W, int r, double inv2_sp_app,
@@ -717,7 +1179,20 @@ extern "C" int crf_iteration_f32(const float* q, const float* g,
   }
   const Args a{q, g, u, out, H, W, inv2_sp_app, inv2_col, inv2_sp_sm,
                w_app, w_sm, eps, static_cast<cudaStream_t>(stream)};
-  if (C > kGenericC) return launch_wide(a, C, G, r);
+  if (C > kGenericC) {
+    if (!generic && wide_fits(r)) {
+      switch (r) {
+        case 0: return launch_wide<0>(a, C, G);
+        case 1: return launch_wide<1>(a, C, G);
+        case 2: return launch_wide<2>(a, C, G);
+        case 3: return launch_wide<3>(a, C, G);
+        case 4: return launch_wide<4>(a, C, G);
+        case 5: return launch_wide<5>(a, C, G);
+        default: break;  // wide_fits holds r <= kWideMaxR
+      }
+    }
+    return launch_wide_simple(a, C, G, r);
+  }
   if (!generic) {
 #define PYLC_K1_LAUNCH(C_, G_, R_) \
   if (C == C_ && G == G_ && r == R_) return launch_tiled<C_, G_, R_>(a);

@@ -5,11 +5,14 @@ The kernel is ``pylc_tpu_torch/csrc/crf_iteration.cu`` (its header says
 what bounds it and what its design does about that): a register-tiled
 kernel with compile-time sizes for the (C, G, r) of ``TILED_SIZES``, the
 sizes the package uses, a generic one-thread-per-pixel kernel for every
-other size up to ``GENERIC_CLASSES`` classes, and a wide kernel that walks
-17 to ``MAX_CLASSES`` classes in chunks.  ``variant`` says which one a
-size gets.  The library is compiled by ``_build`` (nvcc, ``sm_90a``) into
-``pylc_tpu_torch/_build/`` on first use, from the checkout's own source,
-and called through ``ctypes`` on PyTorch's current stream.
+other size up to ``GENERIC_CLASSES`` classes, and for 17 to
+``MAX_CLASSES`` classes a wide kernel that makes each pixel's weights once
+and keeps the tile's logits on chip, for radii up to ``WIDE_MAX_RADIUS``
+(``wide_fits``), else a simple wide kernel that walks the classes in
+chunks.  ``variant`` says which one a size gets.  The library is compiled
+by ``_build`` (nvcc, ``sm_90a``) into ``pylc_tpu_torch/_build/`` on first
+use, from the checkout's own source, and called through ``ctypes`` on
+PyTorch's current stream.
 
 The iteration is the custom operator ``torch.ops.pylc.crf_iteration``
 (``torch.library``), so that ``torch.export`` records it as one call in a
@@ -46,6 +49,15 @@ GENERIC_CLASSES = 16
 # (C, G, r) with a tiled instantiation (PYLC_K1_TILED_SIZES in the source):
 # both schemas' class counts, an RGB or a grayscale guide, the default radius
 TILED_SIZES = frozenset({(9, 3, 3), (11, 3, 3), (9, 1, 3), (11, 1, 3)})
+# the largest radius the wide kernel is built for (kWideMaxR in the
+# source); more than GENERIC_CLASSES classes at a larger radius run on the
+# simple wide kernel
+WIDE_MAX_RADIUS = 5
+
+
+def wide_fits(C: int, r: int) -> bool:
+    """Whether C classes at radius r run on the wide kernel."""
+    return C > GENERIC_CLASSES and r <= WIDE_MAX_RADIUS
 
 
 def variant(C: int, G: int, r: int) -> str:
@@ -53,7 +65,9 @@ def variant(C: int, G: int, r: int) -> str:
     guide and radius r runs on."""
     if (C, G, r) in TILED_SIZES:
         return f"tiled<C={C},G={G},R={r}>"
-    return "generic" if C <= GENERIC_CLASSES else "wide"
+    if C <= GENERIC_CLASSES:
+        return "generic"
+    return f"wide<R={r}>" if wide_fits(C, r) else "wide-simple"
 
 
 def build(force: bool = False):
@@ -75,9 +89,17 @@ def _library() -> ctypes.CDLL:
     lib.crf_iteration_is_tiled.restype = ci
     lib.crf_iteration_max_classes.argtypes = []
     lib.crf_iteration_max_classes.restype = ci
+    lib.crf_iteration_wide_fits.argtypes = [ci, ci]
+    lib.crf_iteration_wide_fits.restype = ci
     if lib.crf_iteration_max_classes() != MAX_CLASSES:
         raise RuntimeError("crf_iteration.cu's kMaxC disagrees with "
                            "MAX_CLASSES")
+    for C in range(GENERIC_CLASSES + 1, MAX_CLASSES + 1):
+        for r in range(MAX_RADIUS + 1):
+            if bool(lib.crf_iteration_wide_fits(C, r)) != wide_fits(C, r):
+                raise RuntimeError(
+                    "crf_iteration.cu's wide_fits disagrees with wide_fits "
+                    f"at (C, r) = {(C, r)}")
     for C in range(1, GENERIC_CLASSES + 1):
         for G in range(1, MAX_GUIDE + 1):
             for r in range(MAX_RADIUS + 1):
@@ -222,8 +244,10 @@ def crf_iteration_generic(q: torch.Tensor, g: torch.Tensor, u: torch.Tensor,
                           sigma_color: float, sigma_spatial_sm: float,
                           w_app: float, w_sm: float, eps: float = 1e-8
                           ) -> torch.Tensor:
-    """``crf_iteration`` on the generic kernel whatever the sizes, CUDA
-    tensors only: the yardstick the tiled kernel is timed against.  The
-    package's paths do not call it, and it counts no launch."""
+    """``crf_iteration`` on the simple form of its size whatever the
+    sizes, CUDA tensors only: the generic kernel up to ``GENERIC_CLASSES``
+    classes, the simple wide kernel above.  The yardstick the tiled and
+    wide kernels are timed against; the package's paths do not call it,
+    and it counts no launch."""
     return _launch(q, g, u, r, sigma_spatial_app, sigma_color,
                    sigma_spatial_sm, w_app, w_sm, eps, generic=True)

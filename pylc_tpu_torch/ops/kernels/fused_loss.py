@@ -15,8 +15,9 @@ which one a logits tensor gets: one that stages a block's span through
 shared memory, for dense ``channels_last`` logits with 9 or 11 classes,
 and a direct one for every other accepted layout.  Above
 ``NARROW_CLASSES`` classes, up to ``MAX_CLASSES`` (the Pallas loss's
-limit), K2a and K2b each have a wide kernel that holds no per-class array
-in registers.
+limit), K2a has a wide kernel that holds no per-class array in
+registers, and K2b a wide staged kernel for dense ``channels_last``
+logits beside a wide direct one for every other layout.
 
 Logits are ``[B, C, H, W]`` f32, either contiguous NCHW or
 ``channels_last`` (the train step hands over the latter); targets are
@@ -229,8 +230,8 @@ def _pixel_stride(logits: torch.Tensor) -> int:
 
 # names of the kernels, by the code ``fused_loss_forward_variant`` and
 # ``fused_loss_backward_variant`` return
-VARIANTS = {3: "wide", 2: "staged<C={C}>", 1: "direct<C={C}>",
-            0: "direct<runtime C>"}
+VARIANTS = {4: "wide-staged", 3: "wide", 2: "staged<C={C}>",
+            1: "direct<C={C}>", 0: "direct<runtime C>"}
 
 
 def forward_variant_code(logits: torch.Tensor) -> int:
@@ -254,15 +255,16 @@ def backward_variant_code(logits: torch.Tensor, aligned: bool = True) -> int:
     class count, dense channels_last: class stride 1, pixel stride C,
     batch stride H*W*C; logits and dlogits 16-byte aligned), 1 the direct
     kernel with a compile-time class count, 0 the direct kernel with a
-    run-time class count held in registers, 3 the wide kernel (more than
-    ``NARROW_CLASSES`` classes, any layout)."""
+    run-time class count held in registers; above ``NARROW_CLASSES``
+    classes 4 the wide staged kernel (dense channels_last, aligned) and 3
+    the wide direct kernel (any other layout)."""
     B, C, H, W = logits.shape
-    if C > NARROW_CLASSES:
-        return 3
-    if C not in KNOWN_CLASSES:
-        return 0
     flat = (logits.stride(1) == 1 and _pixel_stride(logits) == C
             and logits.stride(0) == H * W * C)
+    if C > NARROW_CLASSES:
+        return 4 if flat and aligned else 3
+    if C not in KNOWN_CLASSES:
+        return 0
     return 2 if flat and aligned else 1
 
 
@@ -356,8 +358,8 @@ def fused_loss_backward_direct(logits: torch.Tensor, target: torch.Tensor,
                                acc: torch.Tensor, cotangent: torch.Tensor,
                                w: LossWeights) -> torch.Tensor:
     """``fused_loss_backward`` on the direct kernel whatever the layout
-    (the wide kernel above ``NARROW_CLASSES`` classes), CUDA tensors only:
-    the yardstick the staged kernel is timed against.
+    (the wide direct kernel above ``NARROW_CLASSES`` classes), CUDA tensors
+    only: the yardstick the staged kernels are timed against.
     The package's paths do not call it, and it counts no launch."""
     return _launch_backward(logits, target, class_weights, acc, cotangent,
                             w, direct=True)

@@ -8,8 +8,12 @@ Without ``--against`` it times this checkout's K1 (``crf_iteration`` at
 C=9, G=3, 1024x1792, r=3), K2a and K2b (``fused_loss_forward`` and
 ``fused_loss_backward`` at [8, 9, 512, 512] channels_last, unweighted)
 on CUDA device 0, each as the mean of 200 launches from a loop on the host
-(where a launch costs the host more than the kernel costs the card, this
-is the host's time), and prints one JSON line.  With ``--against DIR`` (another
+(``*_ms``: where a launch costs the host more than the kernel costs the
+card, this is the host's time) and as the mean of 50 launches replayed
+from a CUDA graph (``*_g_ms``: the card's time); then, from graphs only,
+the wide kernels of a schema past 16 classes: K1 at C=20 on the same grid
+and at C=128 on 512x512, K2a and K2b at [8, 20, 512, 512] and K2b at
+[8, 128, 512, 512], channels_last.  It prints one JSON line.  With ``--against DIR`` (another
 checkout of this repository, say the parent commit unpacked by ``git
 archive``) it times DIR, this, this, DIR, ``--rounds`` times over, each in
 a process of its own on the same card, and prints every line and the
@@ -50,27 +54,61 @@ def ms(fn, n=200, warmup=5):
     b.record(); torch.cuda.synchronize()
     return a.elapsed_time(b) / n
 
+def g_ms(fn, n=50):
+    fn(); torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize(); a.record()
+    graph.replay()
+    b.record(); torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
 dev = torch.device("cuda", 0)
 rng = np.random.default_rng(0)
-q = rng.random((9, 1024, 1792)).astype(np.float32); q /= q.sum(0, keepdims=True)
-g = rng.integers(0, 256, (3, 1024, 1792)).astype(np.float32)
-u = np.log(q + 1e-8)
-q, g, u = (torch.from_numpy(a).to(dev) for a in (q, g, u))
 sig = (3.0, 13.0, 1.5, 3.0, 1.0, 1e-8)
-x = torch.from_numpy(rng.normal(size=(8, 9, 512, 512)).astype(np.float32) * 3
-                     ).to(dev).contiguous(memory_format=torch.channels_last)
-t = torch.from_numpy(rng.integers(0, 9, (8, 512, 512)).astype(np.uint8)).to(dev)
 w = LossWeights()
-cw = torch.ones(9, device=dev)  # given, so that no launch makes them
-acc = fused_loss_forward(x, t, cw, w)
 ct = torch.tensor(0.75, device=dev)
-out = {"k1_ms": ms(lambda: crf_iteration(q, g, u, 3, *sig)),
-       "k2a_ms": ms(lambda: fused_loss_forward(x, t, cw, w)),
-       "k2b_ms": ms(lambda: fused_loss_backward(x, t, cw, acc, ct, w)),
-       "card": subprocess.run(
+out = {}
+
+def k1(key, C, H, W, loop):
+    q = rng.random((C, H, W)).astype(np.float32); q /= q.sum(0, keepdims=True)
+    g = rng.integers(0, 256, (3, H, W)).astype(np.float32)
+    u = np.log(q + 1e-8)
+    q, g, u = (torch.from_numpy(a).to(dev) for a in (q, g, u))
+    fn = lambda: crf_iteration(q, g, u, 3, *sig)
+    if loop:
+        out[key + "_ms"] = ms(fn)
+    out[key + "_g_ms"] = g_ms(fn)
+
+def k2(key, C, loop, fwd=True):
+    x = torch.from_numpy(rng.normal(size=(8, C, 512, 512)).astype(np.float32)
+                         * 3).to(dev).contiguous(memory_format=torch.channels_last)
+    t = torch.from_numpy(rng.integers(0, C, (8, 512, 512)).astype(np.uint8)
+                         ).to(dev)
+    cw = torch.ones(C, device=dev)  # given, so that no launch makes them
+    acc = fused_loss_forward(x, t, cw, w)
+    fns = {"k2b" + key: lambda: fused_loss_backward(x, t, cw, acc, ct, w)}
+    if fwd:
+        fns["k2a" + key] = lambda: fused_loss_forward(x, t, cw, w)
+    for name, fn in sorted(fns.items()):
+        if loop:
+            out[name + "_ms"] = ms(fn)
+        out[name + "_g_ms"] = g_ms(fn)
+
+k1("k1", 9, 1024, 1792, True)
+k2("", 9, True)
+k1("k1_wide20", 20, 1024, 1792, False)
+k1("k1_wide128", 128, 512, 512, False)
+k2("_wide20", 20, False)
+k2("_wide128", 128, False, fwd=False)
+out = {"card": subprocess.run(
            ["nvidia-smi", "--query-gpu=name,power.limit",
             "--format=csv,noheader"], capture_output=True, text=True,
-           check=True).stdout.strip().splitlines()[0]}
+           check=True).stdout.strip().splitlines()[0], **out}
 print(json.dumps(out))
 '''
 
@@ -102,7 +140,7 @@ def main(argv=None) -> int:
             res = time_checkout(other if side == "other" else HERE)
             runs[side].append(res)
             print(json.dumps({"checkout": side, **res}), flush=True)
-    keys = ("k1_ms", "k2a_ms", "k2b_ms")
+    keys = [k for k in runs["this"][0] if k.endswith("_ms")]
     print(json.dumps({"medians": {
         side: {k: statistics.median(r[k] for r in rs) for k in keys}
         for side, rs in runs.items()}, "other": other,

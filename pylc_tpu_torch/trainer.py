@@ -160,7 +160,8 @@ def train(cfg: Config, db: Union[str, Dict], n_devices: Optional[int] = None,
     lr_sched = make_lr_schedule(cfg, steps_per_epoch)
 
     ckpt = Checkpoint(model_id, cfg.save_dir)
-    loss = RunningLoss(model_id, cfg.save_dir, resume=cfg.resume_checkpoint)
+    loss = RunningLoss(model_id, cfg.save_dir, resume=cfg.resume_checkpoint,
+                       owner=me == 0)
     epoch0 = it = 0
     if cfg.resume_checkpoint:
         restored = ckpt.load(model, optimizer, scheduler, cfg)

@@ -69,9 +69,10 @@ def test_reference_iteration_matches_pallas_at_tiled_sizes(C, G, H, W, r):
                                        (128, 3, 11, 13, 3)])
 def test_reference_iteration_matches_pallas_at_wide_sizes(C, G, H, W, r):
     """More classes than the card's generic kernel holds: the sizes that
-    run on its wide kernel, through the plain version, against the Pallas
+    run on its wide kernels, through the plain version, against the Pallas
     kernel (which takes any C)."""
-    assert K.variant(C, G, r) == "wide"
+    assert K.variant(C, G, r) == {3: "wide<R=3>", 2: "wide<R=2>",
+                                  8: "wide-simple"}[r]
     rng = np.random.default_rng(C + r)
     q = rng.random((C, H, W)).astype(np.float32)
     q /= q.sum(0, keepdims=True)
@@ -192,12 +193,65 @@ def test_kernel_source_and_build_flags():
     ((9, 3, 3), "tiled<C=9,G=3,R=3>"), ((11, 3, 3), "tiled<C=11,G=3,R=3>"),
     ((9, 1, 3), "tiled<C=9,G=1,R=3>"), ((11, 1, 3), "tiled<C=11,G=1,R=3>"),
     ((11, 3, 2), "generic"), ((9, 3, 4), "generic"), ((7, 3, 3), "generic"),
-    ((9, 2, 3), "generic"), ((16, 4, 8), "generic"), ((17, 3, 3), "wide"),
-    ((20, 1, 3), "wide"), ((128, 4, 8), "wide")])
+    ((9, 2, 3), "generic"), ((16, 4, 8), "generic"),
+    pytest.param((17, 3, 3), "wide<R=3>", id="size9-wide"),
+    pytest.param((20, 1, 3), "wide<R=3>", id="size10-wide"),
+    pytest.param((128, 4, 8), "wide-simple", id="size11-wide")])
 def test_variant_choice(size, name):
     """Which kernel a size runs on: the tiled one for the sizes the
-    package uses (both schemas, RGB or grayscale guide, default radius)."""
+    package uses (both schemas, RGB or grayscale guide, default radius);
+    above 16 classes the wide kernel up to its largest radius."""
     assert K.variant(*size) == name
+
+
+# sizes at the edges of the wide kernel's dispatch: class counts that leave
+# a chunk of kWideK = 4 classes with 1, 3 or no zero planes, each guide
+# width, each radius it is built for (an even and an odd number of window
+# rows per pair of them) and the first radius it is not
+WIDE_BOUNDARIES = [            # (C, G, H, W, r, kernel)
+    (17, 3, 9, 13, 3, "wide<R=3>"),
+    (31, 4, 10, 14, 3, "wide<R=3>"),
+    (33, 1, 9, 11, 2, "wide<R=2>"),
+    (127, 3, 7, 9, 1, "wide<R=1>"),
+    (128, 1, 7, 10, 0, "wide<R=0>"),
+    (128, 3, 6, 7, 3, "wide<R=3>"),
+    (104, 3, 6, 9, 4, "wide<R=4>"),
+    (105, 4, 8, 12, 5, "wide<R=5>"),
+    (128, 4, 6, 7, 5, "wide<R=5>"),
+    (17, 1, 12, 9, 6, "wide-simple"),
+    (20, 4, 13, 11, 8, "wide-simple"),
+]
+
+
+@pytest.mark.parametrize("C,G,H,W,r,kernel", WIDE_BOUNDARIES)
+def test_reference_iteration_matches_pallas_at_wide_boundaries(C, G, H, W, r,
+                                                              kernel):
+    """Each size at an edge of the wide dispatch runs on the kernel named,
+    and its plain version agrees with the Pallas kernel."""
+    assert K.variant(C, G, r) == kernel
+    rng = np.random.default_rng(C * 10 + r)
+    q = rng.random((C, H, W)).astype(np.float32)
+    q /= q.sum(0, keepdims=True)
+    g = rng.integers(0, 256, (G, H, W)).astype(np.float32)
+    u = np.log(q + 1e-8)
+    want = np.asarray(jax_iteration(jnp.asarray(q), jnp.asarray(g),
+                                    jnp.asarray(u), r, **SIGMAS,
+                                    interpret=True))
+    got = K.crf_iteration(torch.from_numpy(q), torch.from_numpy(g),
+                          torch.from_numpy(u), r, **SIGMAS)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-6)
+
+
+def test_wide_dispatch_is_the_sources():
+    """The wide kernel's largest radius is the source's, and the dispatch
+    gives it every class count past the generic kernel's up to it."""
+    with open(K.SOURCE) as f:
+        src = f.read()
+    assert f"constexpr int kWideMaxR = {K.WIDE_MAX_RADIUS};" in src
+    for r in range(K.MAX_RADIUS + 1):
+        assert [K.wide_fits(C, r) for C in range(1, K.MAX_CLASSES + 1)] == \
+            [K.GENERIC_CLASSES < C and r <= K.WIDE_MAX_RADIUS
+             for C in range(1, K.MAX_CLASSES + 1)]
 
 
 def test_tiled_sizes_are_the_sources():

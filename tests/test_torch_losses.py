@@ -240,13 +240,17 @@ def _cl(*shape):
     (_cl(2, 10, 4, 4), True, 0, "direct<runtime C>"),  # an even stride
     (_cl(2, 4, 4, 4), True, 0, "direct<runtime C>"),
     (torch.zeros(2, 16, 3, 3), True, 0, "direct<runtime C>"),
-    (_cl(2, 17, 4, 4), True, 3, "wide"),               # past the registers
+    (_cl(2, 17, 4, 4), True, 4, "wide-staged"),        # past the registers
     (torch.zeros(2, 20, 3, 3), True, 3, "wide"),
     (_cl(1, 128, 5, 3), False, 3, "wide"),
+    (_cl(1, 128, 5, 3), True, 4, "wide-staged"),
+    (_cl(2, 20, 1, 7), True, 4, "wide-staged"),        # H = 1
+    (torch.zeros(1, 17, 5, 3), True, 3, "wide"),
 ], ids=lambda v: v if isinstance(v, str) else None)
 def test_backward_variant_choice(logits, aligned, code, name):
-    """Which K2b kernel a layout gets: the staged one only for dense
-    channels_last logits with a schema's (odd) class count."""
+    """Which K2b kernel a layout gets: the staged ones only for dense
+    channels_last logits, below 17 classes with a schema's (odd) class
+    count."""
     assert fl.backward_variant_code(logits, aligned) == code
     assert fl.VARIANTS[code].format(C=logits.shape[1]) == name
     if aligned:
@@ -320,6 +324,33 @@ def test_plain_backward_at_each_variants_layout(shape, cl):
     dx = fl.fused_loss_backward(xt.detach(), tt, cwt, acc,
                                 torch.tensor(1.0), w)
     np.testing.assert_allclose(dx.numpy(), xt.grad.numpy(), **GRAD_TOL)
+
+
+@pytest.mark.parametrize("C", [17, 31, 32, 33, 64, 65, 127, 128])
+def test_plain_backward_matches_pallas_at_wide_boundaries(C):
+    """Class counts at the edges of the wide staged K2b (its span of 256,
+    128 or 64 pixels changes at 33 and 65 classes; its per-lane starting
+    class depends on the largest power of two dividing C): the dense
+    channels_last logits it takes, a ragged last span, a tenth of the
+    targets outside [0, C); the plain K2b's dlogits against the Pallas
+    backward kernel in interpret mode."""
+    B, H, W = 1, 7, 9
+    x, t, cw = _inputs(C, B, H, W, C, out_of_range=True)
+    w = LossWeights(weighted=C % 2 == 1)
+    jw = JaxLossWeights(weighted=C % 2 == 1)
+
+    def jloss(xx):
+        return jax_fused(xx, jnp.asarray(t.astype(np.int32)),
+                         jnp.asarray(cw), jw)[0]
+
+    jgrad = jax.grad(jloss)(jnp.asarray(x))
+    xt = _torch_x(x, channels_last=True)
+    assert fl.backward_variant(xt) == "wide-staged"
+    total, _ = fl.fused_multi_loss(xt, torch.from_numpy(t),
+                                   torch.from_numpy(cw), w)
+    total.backward()
+    assert xt.grad.is_contiguous(memory_format=torch.channels_last)
+    np.testing.assert_allclose(_nhwc(xt.grad), np.asarray(jgrad), **GRAD_TOL)
 
 
 def _pallas_statistics(x_nhwc, t, cw, jw):

@@ -265,6 +265,62 @@ def test_train_takes_n_devices_positionally(tmp_path, capsys, monkeypatch):
     assert spawned == [(trainer.train, 8, (torch.device("cpu"),) * 8)]
 
 
+@pytest.mark.parametrize("resume", [False, True])
+def test_only_rank_0_touches_losses_json(resume, tmp_path, monkeypatch):
+    """``train`` on a rank other than 0 builds its loss tracker without
+    reading, removing or writing a stale ``losses.json``: when every rank
+    removed it, two ranks could both see it and the second raised
+    ``FileNotFoundError``.  The rank is patched to 1 of 2 and the run stops
+    right after the tracker is built; rank 0 still removes the stale log,
+    or reads it with ``resume``."""
+    from pylc_tpu_torch import checkpoint, trainer
+    from pylc_tpu_torch.config import Config as PortConfig
+
+    class Built(Exception):
+        pass
+
+    built = []
+
+    def tracker(*args, **kw):
+        built.append(checkpoint.RunningLoss(*args, **kw))
+        raise Built
+
+    cfg = PortConfig().replace(tile_size=64, batch_size=BATCH, n_epochs=1,
+                               compute_dtype="float32", arch="unet",
+                               save_dir=str(tmp_path),
+                               resume_checkpoint=resume, **UNET)
+    imgs, masks = _tiles(6, 64)
+    db = {"img": imgs, "mask": masks, "meta": cfg.replace(id="mem").to_meta()}
+    model_id = TileDB(data=db).get_meta(base=cfg, data_only=True) \
+        .gen_model_id()
+    log = tmp_path / model_id / "losses.json"
+    log.parent.mkdir()
+    stale = {"train": [[1, 0.5, 0.5, 0.5]], "valid": [[1, 0.4, 0.3, 0.2]],
+             "best_dice": 0.3, "lr": [[1, 1e-4]]}
+    log.write_text(json.dumps(stale))
+    monkeypatch.setattr(trainer, "RunningLoss", tracker)
+    monkeypatch.setattr(trainer, "world_size", lambda: 2)
+    monkeypatch.setattr(trainer, "rank", lambda: 1)
+    with pytest.raises(Built):
+        train(cfg, db, device="cpu")
+    (loss,) = built
+    assert log.exists(), "rank 1 removed losses.json"
+    assert json.loads(log.read_text()) == stale
+    assert (loss.train, loss.valid, loss.best_dice) == ([], [], 1.0)
+    assert not loss.owner
+    with pytest.raises(RuntimeError, match="only the owner"):
+        loss.save()
+    assert json.loads(log.read_text()) == stale
+
+    monkeypatch.setattr(trainer, "rank", lambda: 0)
+    built.clear()
+    with pytest.raises(Built):
+        train(cfg, db, device="cpu")
+    (loss,) = built
+    assert loss.owner and log.exists() == resume
+    assert loss.best_dice == (0.3 if resume else 1.0)
+
+
 def test_tester_takes_verbose_and_n_devices(trained, tmp_path, capsys):
     """``tester.test(..., verbose=False, n_devices=1)`` segments and
     prints nothing; ``verbose=True`` prints the photo's line and its
