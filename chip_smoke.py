@@ -13,15 +13,22 @@ Phases, in order; any failed check raises, and the script exits non-zero:
   [k1]     K1 against its plain torch version at the serving shape (the
            tiled kernel), at 1024x1792 with schema_b's 11 classes beside
            a grayscale photo, at a ragged shape of each of the four tiled
-           instantiations and at a ragged one of the generic kernel, and
-           on the wide kernel (17 to 128 classes) at 20 classes on the
-           slice's 1024x1792 grid, at 64 and 128 classes on 512x512, and
-           at ragged shapes of 17 to 128 classes and r = 0 to 5 (one per
-           instantiation) and on the simple wide kernel past them (r = 8
-           with a 4-channel guide); per shape the kernel that ran, its time, the plain
-           version's, the simple form's (the generic or simple wide
-           kernel, in turns with it) and the bound.  Fails if a tiled or
-           wide instantiation or the simple wide kernel was not launched.
+           instantiations; at the narrow sizes (at most 16 classes
+           outside the tiled list, on the wide kernel's instantiations) on
+           the slice's 1024x1792 grid at r = 2, 4 and 5, with 11 classes
+           and a grayscale guide at r = 5, with 16 and with 6 classes at
+           r = 3, and at ragged shapes of 1 to 16 classes and r = 1 to 5
+           (one per instantiation), and on the generic kernel at r = 0 and
+           past them (r = 7); on the wide kernel (17 to 128
+           classes) at 20 classes on the slice's 1024x1792 grid, at 64 and
+           128 classes on 512x512, and at ragged shapes of 17 to 128
+           classes and r = 0 to 5 (one per instantiation) and on the
+           simple wide kernel past them (r = 8 with a 4-channel guide);
+           per shape the kernel that ran, its time, the plain version's,
+           the simple form's (the generic or simple wide kernel, in turns
+           with it) and the bound.  Fails if a tiled, narrow or wide
+           instantiation, the generic kernel or the simple wide kernel was
+           not launched.
   [k2]     K2a and K2b against their plain versions at the training
            slice's [8, 9, 512, 512] channels_last logits (weighted and
            not), at a ragged channels_last [3, 9, 61, 53], a ragged
@@ -31,17 +38,18 @@ Phases, in order; any failed check raises, and the script exits non-zero:
            [3, 11, 61, 53], both channels_last, and at the U-Net's
            [8, 9, 324, 324] channels_last; on the wide kernels (17 to 128
            classes) at [2, 20, 61, 53] and [2, 128, 37, 29], channels_last
-           (K2b's wide staged kernel) and contiguous (its wide direct
-           one), at [2, 33, 61, 53] channels_last, and at the train steps'
-           [8, 20, 512, 512] and [8, 128, 512, 512] channels_last: K2a's
-           3C + 4 statistics entry by entry and the losses from them, K2a
-           and K2b twice for bit-equal results, K2b's dlogits against the
-           plain backward fed by the plain forward, and K2b's direct
-           kernel held to the same limit; per shape the kernels that ran,
-           the times (K2b in turns with its direct kernel) and the bounds.
-           Fails if a compile-time instantiation (K2a's and K2b's direct
-           kernels and K2b's staged kernel, each at 9 and 11 classes) or a
-           wide kernel was not launched.
+           (K2a's and K2b's wide staged kernels) and contiguous (their
+           wide kernels), at [2, 33, 61, 53] channels_last, and at the
+           train steps' [8, 20, 512, 512] and [8, 128, 512, 512]
+           channels_last: K2a's 3C + 4 statistics entry by entry and the
+           losses from them, K2a and K2b twice for bit-equal results,
+           K2b's dlogits against the plain backward fed by the plain
+           forward, and the direct kernels of K2a and K2b held to the same
+           limits; per shape the kernels that ran, the times (each in
+           turns with its direct kernel) and the bounds.  Fails if a
+           compile-time instantiation (K2a's and K2b's direct kernels and
+           K2b's staged kernel, each at 9 and 11 classes) or a wide or
+           wide staged kernel was not launched.
   [net]    the f32 network on the card against the same network on the
            CPU.
   [slice]  the segmentation path: ``Segmenter`` with the CRF on, at full
@@ -56,6 +64,10 @@ Phases, in order; any failed check raises, and the script exits non-zero:
            map and mask equal, K1 launched 5 x 4 times, total wall and
            MP/s of both, each photo's completion time, peak memory, and
            the device's busy time per photo under ``torch.profiler``.
+  [radius] ``test --crf_radius 5``: [slice]'s model through its ``.pth``
+           with the CRF at radius 5 on a seeded 3584x2048 photo, K1 as
+           ``narrow<R=5>`` 5 times per photo, the class map against the
+           plain CRF.
   [cli]    the ``test`` CLI on a 3872x2592 JPEG.
   [serve]  the serving path: ``server.build_service`` on [slice]'s
            ``.pth`` with the CRF, behind a ThreadingHTTPServer on an
@@ -73,7 +85,7 @@ Phases, in order; any failed check raises, and the script exits non-zero:
   [wide]   a user's 20-class schema: DeepLabV3+/ResNet101 with the CRF on
            a 1024x1024 photo, K1 on its wide kernel (r = 3), the class
            map against the plain CRF; 5 train steps at 512 px, batch 8,
-           K2a and K2b (staged) on their wide kernels once per step, the
+           K2a and K2b on their wide staged kernels once per step, the
            loss falling.
   [train]  the training path: ``trainer.train`` at full width (512 px,
            batch 8, bf16 autocast, AdamW with step_lr, clip 0.5, the fused
@@ -192,7 +204,26 @@ K1_SHAPES = [                  # (C, G, H, W, r)
     (11, 3, 37, 70, 3),
     (9, 1, 45, 53, 3),
     (11, 1, 29, 66, 3),
-    (11, 3, 37, 70, 2),        # ragged, schema_b's classes, generic kernel
+    # at most 16 classes outside the tiled list (the wide kernel, named
+    # narrow<R=r> there) on the slice's grid at other radii, schema_b's
+    # classes beside a grayscale photo at r = 5, 16 classes and a 6-class
+    # schema
+    (9, 3, 1024, 1792, 2),
+    (9, 3, 1024, 1792, 4),
+    (9, 3, 1024, 1792, 5),
+    (11, 1, 1024, 1792, 5),
+    (16, 3, 1024, 1792, 3),
+    (6, 3, 1024, 1792, 3),
+    # ragged, one per radius, at 1, 6 and 16 classes (r = 0, no window:
+    # the generic kernel)
+    (1, 1, 37, 70, 0),
+    (6, 3, 45, 53, 1),
+    (16, 4, 29, 66, 2),
+    (11, 3, 37, 70, 2),        # schema_b's classes
+    (1, 3, 37, 70, 3),
+    (6, 1, 45, 53, 4),
+    (16, 3, 37, 70, 5),
+    (9, 3, 37, 70, 7),         # past its radii: the generic kernel
     # more classes than the generic kernel holds: the wide kernel, one
     # shape per radius it is built for, and the simple wide kernel past
     # them
@@ -240,7 +271,8 @@ K2_WIDE_SHAPES = [
 ]
 # the compile-time instantiations that [k1] and [k2] must have launched
 K2_CLASS_COUNTS = (9, 11)
-K2A_MUST_RUN = {f"direct<C={C}>" for C in K2_CLASS_COUNTS}
+K2A_MUST_RUN = {f"direct<C={C}>" for C in K2_CLASS_COUNTS} | {"wide",
+                                                              "wide-staged"}
 K2B_MUST_RUN = {f"{kind}<C={C}>" for C in K2_CLASS_COUNTS
                 for kind in ("staged", "direct")} | {"wide", "wide-staged"}
 # f32, no fast math.  Both sides sum millions of terms in different
@@ -268,6 +300,7 @@ DATA_AGREEMENT = 0.999         # oversample card vs CPU, pixel share
 DATA_PROFILE_RTOL = 1e-5       # px_mean / px_std, card vs CPU (f32 sums)
 ZOO_STEPS = 5                  # train steps on one fixed batch, per model
 ZOO_PHOTO_HW = (1024, 1024)    # MobileNetV2, DRN-D-54 and ResUNet
+RADIUS_PHOTO_R = 5             # [radius]: `test --crf_radius 5`
 WIDE_CLASSES = 20              # [wide]: a user's schema past 16 classes
 WIDE_PHOTO_HW = (1024, 1024)
 MULTI_BANDS = (2, 3, 4)        # [multi]: Mesh([cuda:0] * n)
@@ -459,7 +492,8 @@ def phase_build():
 def phase_k1(device):
     """K1 against crf_iteration_reference on the card, and beside it the
     simple form of each size (the generic kernel, or the simple wide
-    kernel past 16 classes), timed in turns.  Returns the worst error, the
+    kernel past 16 classes: what the tiled, narrow and wide kernels
+    replace), timed in turns.  Returns the worst error, the
     slice shape's numbers and every shape's (the kernel that ran, its
     error, times and bound)."""
     from pylc_tpu_torch.ops.kernels.crf_kernel import (
@@ -510,8 +544,10 @@ def phase_k1(device):
     if not at_slice["variant"].startswith("tiled"):
         raise AssertionError(f"the slice's shape ran {at_slice['variant']}, "
                              "not a tiled instantiation")
-    must = {variant(*size) for size in TILED_SIZES} | {"wide-simple"} | {
-        f"wide<R={r}>" for r in range(WIDE_MAX_RADIUS + 1)}
+    must = {variant(*size) for size in TILED_SIZES} | {
+        "wide-simple", "generic"} | {
+        f"wide<R={r}>" for r in range(WIDE_MAX_RADIUS + 1)} | {
+        f"narrow<R={r}>" for r in range(1, WIDE_MAX_RADIUS + 1)}
     missing = must - {c["variant"] for c in checked}
     if missing:
         raise AssertionError(f"kernels of K1 that no shape launched: "
@@ -520,14 +556,15 @@ def phase_k1(device):
 
 
 def phase_k2(device):
-    """K2a and K2b, the kernel each layout gets (and K2b's direct
-    kernel), against fused_forward_reference and fused_backward_reference
-    on the card."""
+    """K2a and K2b, the kernel each layout gets (and beside it the
+    direct kernel of each, timed in turns), against fused_forward_reference
+    and fused_backward_reference on the card."""
     from pylc_tpu_torch.ops.kernels import fused_loss as fl
     from pylc_tpu_torch.ops.kernels.fused_loss import (
         backward_variant, forward_variant, fused_backward_reference,
         fused_forward_reference, fused_loss_backward,
-        fused_loss_backward_direct, fused_loss_forward, losses_from_acc)
+        fused_loss_backward_direct, fused_loss_forward,
+        fused_loss_forward_direct, losses_from_acc)
     from pylc_tpu_torch.ops.losses import LossWeights
     worst_loss, worst_dx, at_slice = 0.0, 0.0, None
     checked = {"fwd": [], "bwd": []}
@@ -548,6 +585,7 @@ def phase_k2(device):
         ct = torch.tensor(0.75, device=device)
         acc = fused_loss_forward(x, t, cw, w)
         acc_again = fused_loss_forward(x, t, cw, w)
+        acc_direct = fused_loss_forward_direct(x, t, cw, w)
         acc_ref = fused_forward_reference(x, t, cw, w)
         # each side's backward from its own forward: a fault of K2a that
         # reaches the gradient shows in dlogits too
@@ -569,7 +607,9 @@ def phase_k2(device):
         del dx_again
         fwd_name, name = forward_variant(x), backward_variant(x)
         lib = fl._library()
-        codes = {"K2a": (lib.fused_loss_forward_variant(C), fwd_name),
+        codes = {"K2a": (lib.fused_loss_forward_variant(
+                     x.data_ptr(), C, H * W, x.stride(0), x.stride(1),
+                     fl._pixel_stride(x)), fwd_name),
                  "K2b": (lib.fused_loss_backward_variant(
                      x.data_ptr(), dx.data_ptr(), C, H * W, x.stride(0),
                      x.stride(1), fl._pixel_stride(x)), name)}
@@ -579,9 +619,14 @@ def phase_k2(device):
                                      f"variant {code}, the wrapper says "
                                      f"{said}")
 
-        acc_diff = (acc - acc_ref).abs()
-        acc_rel = (acc_diff / acc_ref.abs()).nan_to_num(0.0).max().item()
-        acc_bad = int((~(acc_diff <= K2_ACC_RTOL * acc_ref.abs())).sum())
+        def rel_bad(a):
+            """(largest relative error, statistics past K2_ACC_RTOL)."""
+            diff = (a - acc_ref).abs()
+            return ((diff / acc_ref.abs()).nan_to_num(0.0).max().item(),
+                    int((~(diff <= K2_ACC_RTOL * acc_ref.abs())).sum()))
+
+        (acc_rel, acc_bad), (direct_rel, direct_bad) = (
+            rel_bad(acc), rel_bad(acc_direct))
         want = torch.stack(losses_from_acc(acc_ref, C, w))
         got = torch.stack(losses_from_acc(acc, C, w))
         loss_err = (got - want).abs().max().item()
@@ -589,7 +634,9 @@ def phase_k2(device):
         dx_err = (dx - dx_ref).abs().max().item()
         direct_err = (dx_direct - dx_ref).abs().max().item()
         dx_scale = dx_ref.abs().max().item()
-        fwd_ms = graph_ms(lambda: fused_loss_forward(x, t, cw, w), 50)
+        fwd_direct_ms, fwd_ms = in_turns(
+            lambda: fused_loss_forward_direct(x, t, cw, w),
+            lambda: fused_loss_forward(x, t, cw, w), 50)
         fwd_host = cuda_ms(lambda: fused_loss_forward(x, t, cw, w), 50)
         fwd_plain = cuda_ms(lambda: fused_forward_reference(x, t, cw, w), 5)
         direct_ms, bwd_ms = in_turns(
@@ -613,18 +660,23 @@ def phase_k2(device):
         # 50 MB L2 is read from there
         log(f"[k2]   K2a {fwd_name} {fwd_ms:.4f} ms from a graph, "
             f"{fwd_host:.4f} ms from a host loop, plain {fwd_plain:.4f} "
-            f"ms, bound {fwd_bound:.4f} ms by {fwd_by}, share "
-            f"{fwd_bound / fwd_ms:.3f} ({fwd_bound / fwd_host:.3f} by the "
-            f"host loop); K2b {name} {bwd_ms:.4f} ms from a graph, "
+            f"ms, direct kernel {fwd_direct_ms:.4f} ms (statistics "
+            f"max_rel_err {direct_rel:.3e}), bound {fwd_bound:.4f} ms by "
+            f"{fwd_by}, share {fwd_bound / fwd_ms:.3f} "
+            f"({fwd_bound / fwd_host:.3f} by the host loop); K2b {name} "
+            f"{bwd_ms:.4f} ms from a graph, "
             f"{bwd_host:.4f} ms from a host loop, plain {bwd_plain:.4f} "
             f"ms, direct kernel {direct_ms:.4f} ms (max_abs_err "
             f"{direct_err:.3e}), bound {bwd_bound:.4f} ms by {bwd_by}, "
             f"share {bwd_bound / bwd_ms:.3f}")
-        if acc_bad:
-            raise AssertionError(
-                f"K2a disagrees with its plain version on {acc_bad} of "
-                f"{3 * C + 4} statistics: {acc.tolist()} vs "
-                f"{acc_ref.tolist()}")
+        for what, bad, got_acc in (("K2a", acc_bad, acc),
+                                   ("K2a's direct kernel", direct_bad,
+                                    acc_direct)):
+            if bad:
+                raise AssertionError(
+                    f"{what} disagrees with its plain version on {bad} of "
+                    f"{3 * C + 4} statistics: {got_acc.tolist()} vs "
+                    f"{acc_ref.tolist()}")
         if not loss_rel <= K2_LOSS_RTOL:
             raise AssertionError(f"K2a disagrees with its plain version on "
                                  f"the losses: relative {loss_rel} > "
@@ -640,7 +692,8 @@ def phase_k2(device):
         numbers = {
             "fwd": {"ms": fwd_ms, "plain_ms": fwd_plain,
                     "bound_ms": fwd_bound, "bound_by": fwd_by,
-                    "variant": fwd_name, "host_loop_ms": fwd_host},
+                    "variant": fwd_name, "host_loop_ms": fwd_host,
+                    "direct_ms": fwd_direct_ms},
             "bwd": {"ms": bwd_ms, "plain_ms": bwd_plain,
                     "bound_ms": bwd_bound, "bound_by": bwd_by,
                     "variant": name, "host_loop_ms": bwd_host,
@@ -653,8 +706,14 @@ def phase_k2(device):
             numbers["bwd"], shape=shape, max_abs_err=dx_err,
             share_of_bound=bwd_bound / bwd_ms))
         # the direct kernel of this class count, run beside whatever the
-        # layout gets and held to the same limit (the wide direct kernel
-        # past 16 classes)
+        # layout gets and held to the same limit (the wide kernels past 16
+        # classes)
+        if fwd_name == "wide-staged":
+            checked["fwd"].append({
+                "variant": "wide", "shape": shape,
+                "max_rel_err": direct_rel, "ms": fwd_direct_ms,
+                "bound_ms": fwd_bound, "bound_by": fwd_by,
+                "share_of_bound": fwd_bound / fwd_direct_ms})
         if name != "wide":
             code = fl.backward_variant_code(x)
             checked["bwd"].append({
@@ -670,7 +729,7 @@ def phase_k2(device):
         raise AssertionError(f"the train step's layout ran K2a {ran[0]} and "
                              f"K2b {ran[1]}, not the compile-time class "
                              "count and the staged kernel")
-    for what, must, key in (("K2a", K2A_MUST_RUN | {"wide"}, "fwd"),
+    for what, must, key in (("K2a", K2A_MUST_RUN, "fwd"),
                             ("K2b", K2B_MUST_RUN, "bwd")):
         missing = must - {c["variant"] for c in checked[key]}
         if missing:
@@ -731,6 +790,21 @@ def phase_slice(device, workdir, cfg_base=None, hw=SLICE_HW):
     launches, seg, _ = drive_photo("[slice]", cfg, model, device, photo,
                                    N_PHOTOS)
     return launches, pth, seg
+
+
+def phase_radius(device, pth):
+    """``test --crf_radius 5``: [slice]'s model and photo size with the CRF
+    at radius RADIUS_PHOTO_R, K1 as ``narrow<R=5>``.  Returns K1's
+    launches."""
+    from pylc_tpu_torch.config import Config
+    from pylc_tpu_torch.tester import load_model
+    cfg, model, _ = load_model(pth, Config(), device)
+    cfg = cfg.replace(crf_radius=RADIUS_PHOTO_R)
+    photo = np.random.default_rng(5).integers(0, 255, (*SLICE_HW, 3),
+                                              dtype=np.uint8)
+    launches, _, _ = drive_photo(f"[radius] r={RADIUS_PHOTO_R}:", cfg, model,
+                                 device, photo, N_PHOTOS, "narrow<")
+    return launches
 
 
 def drive_photo(tag, cfg, model, device, photo, n_timed, k1_kind="tiled"):
@@ -971,7 +1045,8 @@ def phase_wide(device, workdir):
     held kernels take): DeepLabV3+/ResNet101 at full width with the CRF
     on a 1024x1024 photo, K1 on its wide kernel, the class map against the
     plain CRF; then ZOO_STEPS train steps with the fused loss on K2a's and
-    K2b's wide kernels.  Returns (K1 launches, (K2a, K2b launches))."""
+    K2b's wide staged kernels.  Returns (K1 launches, (K2a, K2b
+    launches))."""
     from pylc_tpu_torch.config import Config
     from pylc_tpu_torch.train_state import init_model
     cfg = Config(schema=write_schema(os.path.join(workdir, "wide.json"),
@@ -985,7 +1060,7 @@ def phase_wide(device, workdir):
                                  model, device, photo, N_PHOTOS, "wide<")
     k2a, k2b, _, _, _ = zoo_train_steps(
         f"deeplab/resnet {WIDE_CLASSES} classes", cfg, model, device,
-        "[wide]", ("wide", "wide-staged"))
+        "[wide]", ("wide-staged", "wide-staged"))
     return launches, (k2a, k2b)
 
 
@@ -2500,6 +2575,7 @@ def main() -> int:
         launches, pth, seg = phase_slice(device, workdir)
         many_launches = phase_many(seg, device)
         del seg
+        radius_launches = phase_radius(device, pth)
         phase_cli(pth, workdir)
         serve_launches, artifact_launches = phase_serve(device, workdir, pth)
     torch.cuda.empty_cache()
@@ -2528,6 +2604,7 @@ def main() -> int:
     # each path's launches: the count set to 0 just before it, read just
     # after; "launches" is the first path's
     k1_paths = {"slice": launches, "many": many_launches,
+                "radius_photo": radius_launches,
                 "serve": serve_launches, "artifact": artifact_launches,
                 "wide_photo": wide_launches, "banded_photo": banded_launches,
                 **{k: v for k, v in zoo.items() if k.endswith("_photo")}}

@@ -27,7 +27,7 @@
 // (2C FFMA, the guide distance, expf), ~1,600 per pixel, 0.10 ms at one
 // instruction per scheduler and clock.
 //
-// Up to 16 classes, two kernels:
+// Up to 16 classes, three forms:
 //
 // crf_tiled_kernel<C, G, R>, for the sizes the package uses (the list is
 // in crf_iteration_f32 below).  C, G and R are compile-time, so the class
@@ -68,13 +68,37 @@
 // warps per SM (the registers' limit) do not cover expf's and the shared
 // loads' latencies in a ~1,000-instruction loop body.
 //
-// crf_generic_kernel, for every other size within C <= 16, G <= 4,
-// r <= 8: one thread per pixel, runtime sizes, the form this kernel had
-// before the tiled one (0.73 ms at the serving shape against the tiled
-// kernel's time in PERF.md).
+// narrow<R>, for every other size within C <= 16, G <= 4 at
+// 1 <= r <= kWideMaxR = 5 (another --crf_radius, a schema of another class
+// count): the wide kernel below, crf_wide_kernel<R>, with 1 to 4 chunks of
+// kWideK classes and zero planes past C.  What the generic kernel spends
+// and it does not: run-time C, G and r (the window loops do not unroll;
+// the class loops run to kGenericC under a test whatever C), two FMAs and
+// a 4-byte shared load per class and offset, and the (2r+1)^2 - 1 weights
+// of every pixel made by every pass over its classes.  Measured on an
+// H100 80GB HBM3 at 700 W (chip_smoke.py's [k1], a CUDA graph of 50
+// launches, the generic kernel in turns) at C = 9, G = 3 on 1024x1792:
+// r = 2 0.229 ms against 0.450, r = 4 0.633 against 1.109, r = 5 0.744
+// against 1.574; 1.75x to 2.20x at the six narrow shapes of PERF.md.
+// Tried on the same card and not kept: a narrow template beside it (every
+// chunk staged at once with one wait, no ring, the parts' sums added once
+// at the end, 4-row tiles at r >= 4), a build of each timed in turns
+// (host loops of 100 launches): 0.296, 0.609 and 0.690 ms against the wide
+// kernel's 0.229, 0.634 and 0.745 at r = 2, 4 and 5; 29% over it at r = 2
+// and at most 7% under it elsewhere, for a second kernel of ~200 lines.
+//
+// crf_generic_kernel, for r = 6 to 8 within C <= 16, G <= 4 (a thread
+// cannot hold those radii's coefficients), and at r = 0 (no window: the
+// iteration is the softmax of u, and the wide kernel's staging of q and
+// the guide is wasted; 0.0037 ms against its 0.0043 on 37x70 at C = 1, in
+// turns in [k1]): one thread per pixel, runtime sizes, the form this
+// kernel had before the tiled one (0.73 ms at the serving shape against
+// the tiled kernel's time in PERF.md; 58 registers, no stack); every
+// size's yardstick (crf_iteration_generic).
 //
 // For 17 to 128 classes (the JAX package's Pallas kernel takes any C; its
 // fused loss stops at 128, and so does this source), G <= 4, two kernels.
+// The first, crf_wide_kernel<R>, also runs the narrow sizes above.
 // Neither can hold a pixel's 2C accumulators in registers or the q window
 // of every class in shared memory (272 KB at C = 128, r = 3), so both walk
 // the classes in chunks.
@@ -1100,9 +1124,14 @@ constexpr size_t wide_smem_bytes(int C, int r, int ty) {
 static_assert(wide_smem_bytes(kMaxC, kWideMaxR, kWideTY) <= 232448,
               "the largest sizes must fit a block's shared memory");
 
-// Whether more than kGenericC classes at radius r run on crf_wide_kernel
-// (a radius it is built for), else on the simple wide kernel.
+// Whether radius r is one crf_wide_kernel is built for (its coefficients
+// fit a thread's registers); past it the simple forms run: the simple wide
+// kernel above kGenericC classes, the generic kernel within.
 bool wide_fits(int r) { return r <= kWideMaxR; }
+
+// Whether a size of at most kGenericC classes at radius r runs on
+// crf_wide_kernel (at r = 0 the generic kernel is the faster).
+bool narrow_fits(int r) { return r >= 1 && wide_fits(r); }
 
 template <int R>
 int launch_wide(const Args& a, int C, int G) {
@@ -1160,13 +1189,22 @@ extern "C" int crf_iteration_wide_fits(int C, int r) {
   return C > kGenericC && wide_fits(r) ? 1 : 0;
 }
 
+// 1 if (C, G, r) is a narrow size: at most kGenericC classes, no tiled
+// instantiation, narrow_fits(r) (crf_wide_kernel runs it).
+extern "C" int crf_iteration_is_narrow(int C, int G, int r) {
+  return C <= kGenericC && !crf_iteration_is_tiled(C, G, r) && narrow_fits(r)
+             ? 1 : 0;
+}
+
 // C entry for ctypes.  Returns a cudaError_t: the launch's own error (a
 // refused configuration never runs, and a later synchronize would not
 // report it), or cudaErrorInvalidValue for sizes outside the bounds above.
-// More than kGenericC classes run on the wide kernel where it has room,
-// else on the simple wide kernel.  generic != 0 takes the simple form
-// whatever the sizes (the generic kernel, or the simple wide kernel above
-// kGenericC classes), to time one against the other.
+// A size with a tiled instantiation runs on it; every other size runs on
+// crf_wide_kernel where wide_fits (more than kGenericC classes) or
+// narrow_fits (the narrow sizes) says so, else on the simple forms.
+// generic != 0 takes the simple form whatever the sizes (the generic
+// kernel, or the simple wide kernel above kGenericC classes), to time one
+// against the other.
 extern "C" int crf_iteration_f32(const float* q, const float* g,
                                  const float* u, float* out, int C, int G,
                                  int H, int W, int r, double inv2_sp_app,
@@ -1179,25 +1217,21 @@ extern "C" int crf_iteration_f32(const float* q, const float* g,
   }
   const Args a{q, g, u, out, H, W, inv2_sp_app, inv2_col, inv2_sp_sm,
                w_app, w_sm, eps, static_cast<cudaStream_t>(stream)};
-  if (C > kGenericC) {
-    if (!generic && wide_fits(r)) {
-      switch (r) {
-        case 0: return launch_wide<0>(a, C, G);
-        case 1: return launch_wide<1>(a, C, G);
-        case 2: return launch_wide<2>(a, C, G);
-        case 3: return launch_wide<3>(a, C, G);
-        case 4: return launch_wide<4>(a, C, G);
-        case 5: return launch_wide<5>(a, C, G);
-        default: break;  // wide_fits holds r <= kWideMaxR
-      }
-    }
-    return launch_wide_simple(a, C, G, r);
-  }
   if (!generic) {
 #define PYLC_K1_LAUNCH(C_, G_, R_) \
   if (C == C_ && G == G_ && r == R_) return launch_tiled<C_, G_, R_>(a);
     PYLC_K1_TILED_SIZES(PYLC_K1_LAUNCH)
 #undef PYLC_K1_LAUNCH
+    switch ((C > kGenericC ? wide_fits(r) : narrow_fits(r)) ? r : -1) {
+      case 0: return launch_wide<0>(a, C, G);
+      case 1: return launch_wide<1>(a, C, G);
+      case 2: return launch_wide<2>(a, C, G);
+      case 3: return launch_wide<3>(a, C, G);
+      case 4: return launch_wide<4>(a, C, G);
+      case 5: return launch_wide<5>(a, C, G);
+      default: break;  // the simple forms
+    }
   }
-  return launch_generic(a, C, G, r);
+  return C > kGenericC ? launch_wide_simple(a, C, G, r)
+                       : launch_generic(a, C, G, r);
 }

@@ -127,12 +127,33 @@
 // Wide kernels, for 17 to 128 classes (the Pallas loss asserts C <= 128):
 // the kernels above keep a pixel's C logits and K2a's 3C + 4 sums in
 // registers, sized for at most kNarrowC = 16 classes at run time; at 128
-// those arrays would spill.  fused_loss_forward_wide_kernel reads a pixel's
-// logits twice (max, then the sum of exps) and leaves max and 1 / sum in
-// shared memory; thread c then sums class c over the chunk's pixels, so no
-// per-class array is needed anywhere (the simple form: its redesign is
-// later work).  The same rules hold: the 3C + 4 statistics and the final
-// sum in double in a fixed order, no atomics, two launches bit-equal.
+// those arrays would spill.  The same rules hold for the wide kernels: the
+// 3C + 4 statistics and the final sum in a fixed order, no atomics, two
+// launches bit-equal.  K2a wide, two kernels:
+//   - fused_loss_forward_wide_staged_kernel<T>, for dense channels_last
+//     logits (16-byte aligned): the wide staged K2b's span (the most of
+//     256, 128 or 64 pixels whose C floats take at most 32 KB), two spans
+//     in shared memory with the 16-byte cp.async copies of the next in
+//     flight during the arithmetic of this one.  By rows, T = 256 / span
+//     threads per pixel take its max and one expf per class kept in
+//     place, with the bank-skewed class walk of the wide staged K2b, then
+//     1 / sum and the four scalars; by columns, the block as groups of C
+//     threads sums p_c, p_c [y == c] and [y == c] over the span's pixels,
+//     lanes on consecutive words.  Each logit is read from device memory
+//     once, in whole sectors, and takes one expf; the class sums are f32
+//     within a span (at most 32 terms) and double across spans.  Measured
+//     on an H100 80GB HBM3 at 700 W (chip_smoke.py's [k2], a CUDA graph of
+//     50 launches, the wide kernel in turns): 0.108 ms against 0.170 at
+//     [8, 20, 512, 512] (0.47 of the bound), 0.644 against 3.026 at
+//     [8, 128, 512, 512] (0.50); 48 registers at T = 1, 62 at T = 2 and
+//     4, no spills.  What is left at 20 classes: a block walks its 16 spans
+//     one after the other behind three barriers each, and the grid's 512
+//     blocks give an SM about 4 of the 5 it could hold.
+//   - fused_loss_forward_wide_kernel, for every other layout: per chunk
+//     of 256 pixels the pixel threads read a pixel's logits twice (max,
+//     then the sum of exps) and leave max and 1 / sum in shared memory;
+//     thread c then re-reads class c over the chunk's pixels (one more
+//     expf), in double, so no per-class array is needed anywhere.
 //
 // K2b wide, two kernels, both with the per-class dice and CE terms in
 // shared memory and backward_pixel's arithmetic class by class:
@@ -410,6 +431,15 @@ __device__ __forceinline__ void cp_async_16(float* dst, const float* src) {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 struct BwdParams {
@@ -710,6 +740,198 @@ fused_loss_forward_wide_kernel(const float* __restrict__ x,
   }
 }
 
+// K2a, dense channels_last, more classes than a thread holds: x is flat
+// [N][C], 16-byte aligned.  Block b takes pixels [b kFwdPixels, (b + 1)
+// kFwdPixels) of the flat index, in spans of kSpan = kThreads / T pixels
+// (wide_span(C): the most of 256, 128 and 64 whose kSpan C floats take at
+// most 32 KB), two spans in shared memory: the 16-byte cp.async copies of
+// span s + 1 are in flight while the block works on span s.  Per span:
+//   - by rows: thread (k, j) takes pixel j's classes [k M, (k + 1) M),
+//     M = ceil(C / T), from a skewed start (lane l starts at (l g / 32) mod
+//     its count, g the largest power of two dividing C, at most 32, as in
+//     the wide staged K2b: the lanes of a warp, whose pixels lie C words
+//     apart, meet in a bank at most twice); its max, then one expf per
+//     class kept in place and their sum; the T threads of a pixel meet in
+//     shared memory (T > 1), and thread (0, j) keeps 1 / sum and the
+//     target and adds the pixel's four scalars;
+//   - by columns: the block's threads as kThreads / C groups of C, thread
+//     (group, c) sums p_c, p_c [y == c] and [y == c] over the span's
+//     pixels group, group + groups, ...: the lanes read consecutive words.
+// A thread's class sums are f32 within a span (at most 32 terms) and
+// double across spans; at the end thread c sums its class over the groups
+// in group order (double), and the scalars take the block's fixed-order
+// reduction.  Every order depends on N and C only.
+template <int T>
+__global__ void __launch_bounds__(kThreads)
+fused_loss_forward_wide_staged_kernel(const float* __restrict__ x,
+                                      const uint8_t* __restrict__ t,
+                                      const float* __restrict__ cw,
+                                      float* __restrict__ partials, int C,
+                                      long long N, FwdParams P) {
+  constexpr int kSpan = kThreads / T;
+  extern __shared__ __align__(16) float buf[];  // [2][kSpan C]
+  __shared__ float cw_s[kMaxC];
+  __shared__ float s_inv[kSpan];    // 1 / sum of exps, by pixel
+  __shared__ int s_y[kSpan];        // the target, -1 for no class
+  __shared__ float s_z[kSpan];      // the target's logit - max
+  __shared__ float s_max[T][kSpan];  // the T threads' partial maxes
+  __shared__ float s_sum[T][kSpan];  // and sums
+  __shared__ float rows[kWarps][4];
+  const int tid = threadIdx.x;
+  if (tid < C) cw_s[tid] = P.weighted ? cw[tid] : 1.f;
+
+  const long long n_first = static_cast<long long>(blockIdx.x) * kFwdPixels;
+  const long long left = N - n_first;
+  const int n_block = left < kFwdPixels ? static_cast<int>(left)
+                                        : kFwdPixels;
+  const int n_spans = (n_block + kSpan - 1) / kSpan;
+  const int span_fl = kSpan * C;
+  const float* src = x + n_first * C;  // 16-byte aligned: 4 | kFwdPixels C
+
+  // by rows: pixel j, class block k (one k per warp)
+  const int j = tid % kSpan, k = tid / kSpan;
+  const int M = (C + T - 1) / T;
+  const int c_lo = k * M;
+  const int m_k = min(C, c_lo + M) - c_lo;  // at least 1 for C > kNarrowC
+  const int g = min(C & -C, 32);
+  const int first = (((tid & 31) * g) >> 5) % m_k;
+  // by columns: class cc of group grp; threads past n_groups C stay idle
+  const int n_groups = kThreads / C;
+  const int grp = tid / C, cc = tid - grp * C;
+
+  float scal[4] = {0.f, 0.f, 0.f, 0.f};
+  double inter = 0.0, sump = 0.0, cnt = 0.0;
+
+  const auto stage = [&](int s) {  // span s into its half of buf
+    const int n_px = min(kSpan, n_block - s * kSpan);
+    const int n_fl = n_px * C, n_vec = n_fl >> 2;
+    const float* from = src + static_cast<long long>(s) * span_fl;
+    float* to = buf + (s & 1) * span_fl;
+    for (int i = tid; i < n_vec; i += kThreads) {
+      cp_async_16(to + 4 * i, from + 4 * i);
+    }
+    for (int i = 4 * n_vec + tid; i < n_fl; i += kThreads) to[i] = from[i];
+  };
+  stage(0);
+  cp_async_commit();
+  for (int s = 0; s < n_spans; ++s) {
+    if (s + 1 < n_spans) stage(s + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // span s has landed (this thread's copies)
+    __syncthreads();     // and every thread's
+    const long long n0 = n_first + static_cast<long long>(s) * kSpan;
+    const int n_px = min(kSpan, n_block - s * kSpan);
+    float* cur = buf + (s & 1) * span_fl;
+
+    // by rows
+    const bool live = j < n_px;
+    float* v = cur + j * C;
+    const int target = live ? t[n0 + j] : 0;
+    const int y = target < C ? target : -1;
+    float mx = -INFINITY;
+    if (live) {
+      for (int i = 0, c = c_lo + first; i < m_k;
+           ++i, c = c + 1 == c_lo + m_k ? c_lo : c + 1) {
+        mx = fmaxf(mx, v[c]);
+      }
+    }
+    if (T > 1) {
+      s_max[k][j] = mx;
+      __syncthreads();
+      mx = -INFINITY;
+#pragma unroll
+      for (int kk = 0; kk < T; ++kk) mx = fmaxf(mx, s_max[kk][j]);
+    }
+    float se = 0.f;
+    if (live) {
+      if (y >= c_lo && y < c_lo + m_k) s_z[j] = v[y] - mx;
+      for (int i = 0, c = c_lo + first; i < m_k;
+           ++i, c = c + 1 == c_lo + m_k ? c_lo : c + 1) {
+        const float e = expf(v[c] - mx);
+        v[c] = e;
+        se += e;
+      }
+    }
+    if (T > 1) {
+      s_sum[k][j] = se;
+      __syncthreads();
+      se = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < T; ++kk) se += s_sum[kk][j];
+    }
+    if (k == 0 && live) {
+      const float inv_se = 1.f / se;
+      s_inv[j] = inv_se;
+      s_y[j] = y;
+      const float py = y >= 0 ? v[y] * inv_se : 0.f;
+      const float wy = y >= 0 ? cw_s[y] : (P.weighted ? 0.f : 1.f);
+      const float nll = y >= 0 ? -(s_z[j] - logf(se)) : 0.f;
+      const float q = py + P.eps;
+      const float bq = 1.f - q;
+      const float pw = P.gamma == 2.f ? bq * bq : powf(bq, P.gamma);
+      scal[0] += nll * wy;
+      scal[1] += wy;
+      scal[2] += -P.alpha * pw * logf(q);
+      scal[3] += 1.f;
+    }
+    __syncthreads();
+
+    // by columns
+    if (grp < n_groups) {
+      const float* col = cur + cc;
+      float fs = 0.f, fi = 0.f, fc = 0.f;
+      for (int jj = grp; jj < n_px; jj += n_groups) {
+        const float p = col[jj * C] * s_inv[jj];
+        fs += p;
+        if (s_y[jj] == cc) {
+          fi += p;
+          fc += 1.f;
+        }
+      }
+      sump += fs;
+      inter += fi;
+      cnt += fc;
+    }
+    __syncthreads();  // span s's half of buf, s_inv and s_y are free
+  }
+
+  const int lane = tid & 31, warp = tid >> 5;
+#pragma unroll
+  for (int vv = 0; vv < 4; ++vv) {
+    const float sum = warp_sum(scal[vv]);
+    if (lane == 0) rows[warp][vv] = sum;
+  }
+  double* groups = reinterpret_cast<double*>(buf);  // [3][kThreads]
+  if (grp < n_groups) {
+    groups[tid] = inter;
+    groups[kThreads + tid] = sump;
+    groups[2 * kThreads + tid] = cnt;
+  }
+  __syncthreads();
+  const int row = blockIdx.x;
+  const long long n_rows = gridDim.x;
+  if (tid < 4) {
+    float total = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) total += rows[w][tid];
+    partials[(3LL * C + tid) * n_rows + row] = total;
+  }
+  if (tid < C) {
+    double sums[3] = {0.0, 0.0, 0.0};
+    for (int gg = 0; gg < n_groups; ++gg) {
+#pragma unroll
+      for (int vv = 0; vv < 3; ++vv) {
+        sums[vv] += groups[vv * kThreads + gg * C + tid];
+      }
+    }
+#pragma unroll
+    for (int vv = 0; vv < 3; ++vv) {
+      partials[static_cast<long long>(vv * C + tid) * n_rows + row] =
+          static_cast<float>(sums[vv]);
+    }
+  }
+}
+
 // K2b, any accepted layout, more classes than a thread holds: one thread
 // per pixel at the logits' strides (blockIdx.y the image), the per-class
 // terms in shared memory, and the pixel's logits read four times (max, sum,
@@ -889,6 +1111,32 @@ int wide_span(int C) {
 // Class counts with compile-time instantiations (both schemas').
 bool known_classes(int C) { return C == 9 || C == 11; }
 
+// The wide staged K2a with T threads per pixel of a span, opted in to its
+// shared memory (above 48 KB at more than 48 classes).
+template <int T>
+cudaError_t launch_wide_staged(const float* x, const uint8_t* t,
+                               const float* cw, float* partials, int C,
+                               long long N, FwdParams P, dim3 grid,
+                               size_t smem, cudaStream_t s) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      fused_loss_forward_wide_staged_kernel<T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  fused_loss_forward_wide_staged_kernel<T><<<grid, kThreads, smem, s>>>(
+      x, t, cw, partials, C, N, P);
+  return cudaGetLastError();
+}
+
+// Whether logits at these strides are dense channels_last (flat [N][C])
+// and, with dx where there is one, 16-byte aligned: what the staged kernels
+// take.
+bool flat_aligned(const float* x, const float* dx, int C, long long HW,
+                  long long sB, long long sC, long long sP) {
+  const bool flat = sC == 1 && sP == C && sB == HW * C;
+  return flat && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(dx) % 16 == 0;
+}
+
 }  // namespace
 
 // C entries for ctypes.  Each launch entry returns a cudaError_t: the
@@ -897,7 +1145,9 @@ bool known_classes(int C) { return C == 9 || C == 11; }
 // outside the bounds above.
 
 // Rows of partials K2a's first kernel writes: one per block, a function of
-// the shape only (a block does not cross images).
+// the shape only (a block of the direct and wide kernels does not cross
+// images; the wide staged kernel's blocks cover the flat index and write
+// ceil(N / kFwdPixels) rows, at most this many).
 extern "C" long long fused_loss_partial_rows(long long N, long long HW) {
   return (N / HW) * ceil_div(HW, kFwdPixels);
 }
@@ -910,30 +1160,50 @@ extern "C" long long fused_loss_workspace(long long N, long long HW, int C) {
 
 extern "C" int fused_loss_max_classes() { return kMaxC; }
 
-// Which K2a kernel C classes get: 1 a compile-time C, 0 a run-time C held
-// in registers, 3 the wide kernel (more than kNarrowC classes).
-extern "C" int fused_loss_forward_variant(int C) {
-  if (C > kNarrowC) return 3;
+// Which K2a kernel the layout gets: 1 the direct kernel with a
+// compile-time C, 0 with a run-time C held in registers; above kNarrowC
+// classes 4 the wide staged kernel (dense channels_last, 16-byte aligned),
+// 3 the wide kernel (any other layout).
+extern "C" int fused_loss_forward_variant(const float* x, int C,
+                                          long long HW, long long sB,
+                                          long long sC, long long sP) {
+  if (C > kNarrowC) return flat_aligned(x, x, C, HW, sB, sC, sP) ? 4 : 3;
   return known_classes(C) ? 1 : 0;
 }
 
 // K2a: out[3C + 4] = (inter[C], sump[C], cnt[C], nll_sum, wsum, focal_sum,
 // count) over all N pixels.  workspace holds fused_loss_workspace(N, HW, C)
-// floats.
+// floats.  direct != 0 takes the wide kernel above kNarrowC classes
+// whatever the layout, to time the wide staged kernel against it.
 extern "C" int fused_loss_forward_f32(const float* x, const uint8_t* t,
                                       const float* cw, float* workspace,
                                       float* out, int C, long long N,
                                       long long HW, long long sB,
                                       long long sC, long long sP,
                                       int weighted, float alpha, float gamma,
-                                      float eps, void* stream) {
+                                      float eps, int direct, void* stream) {
   if (!layout_ok(C, N, HW)) return static_cast<int>(cudaErrorInvalidValue);
   const Layout L{HW, sB, sC, sP};
   const FwdParams P{weighted, alpha, gamma, eps};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>(ceil_div(HW, kFwdPixels)),
-                  static_cast<unsigned>(N / HW));
-  if (C == 9) {
+  dim3 grid(static_cast<unsigned>(ceil_div(HW, kFwdPixels)),
+            static_cast<unsigned>(N / HW));
+  const int variant = fused_loss_forward_variant(x, C, HW, sB, sC, sP);
+  if (variant == 4 && !direct) {
+    // a block per kFwdPixels of the flat index: at most the rows above
+    grid = dim3(static_cast<unsigned>(ceil_div(N, kFwdPixels)));
+    const int n_span = wide_span(C);
+    const size_t smem = 2 * static_cast<size_t>(n_span) * C * sizeof(float);
+    cudaError_t e = cudaSuccess;
+    if (n_span == kThreads) {
+      e = launch_wide_staged<1>(x, t, cw, workspace, C, N, P, grid, smem, s);
+    } else if (n_span == kThreads / 2) {
+      e = launch_wide_staged<2>(x, t, cw, workspace, C, N, P, grid, smem, s);
+    } else {
+      e = launch_wide_staged<4>(x, t, cw, workspace, C, N, P, grid, smem, s);
+    }
+    if (e != cudaSuccess) return static_cast<int>(e);
+  } else if (C == 9) {
     fused_loss_forward_direct_kernel<9><<<grid, kThreads, 0, s>>>(
         x, t, cw, workspace, C, L, P);
   } else if (C == 11) {
@@ -961,11 +1231,9 @@ extern "C" int fused_loss_forward_f32(const float* x, const uint8_t* t,
 extern "C" int fused_loss_backward_variant(const float* x, const float* dx,
                                            int C, long long HW, long long sB,
                                            long long sC, long long sP) {
-  const bool flat = sC == 1 && sP == C && sB == HW * C;
-  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(dx) % 16 == 0;
-  if (C > kNarrowC) return flat && aligned ? 4 : 3;
-  return known_classes(C) ? (flat && aligned ? 2 : 1) : 0;
+  const bool staged = flat_aligned(x, dx, C, HW, sB, sC, sP);
+  if (C > kNarrowC) return staged ? 4 : 3;
+  return known_classes(C) ? (staged ? 2 : 1) : 0;
 }
 
 // K2b: dx (at the logits' strides) from K2a's out vector `acc` and the

@@ -4,15 +4,16 @@ Port of the TPU kernel ``pylc_tpu/ops/pallas/crf_kernel.py::crf_iteration``.
 The kernel is ``pylc_tpu_torch/csrc/crf_iteration.cu`` (its header says
 what bounds it and what its design does about that): a register-tiled
 kernel with compile-time sizes for the (C, G, r) of ``TILED_SIZES``, the
-sizes the package uses, a generic one-thread-per-pixel kernel for every
-other size up to ``GENERIC_CLASSES`` classes, and for 17 to
-``MAX_CLASSES`` classes a wide kernel that makes each pixel's weights once
-and keeps the tile's logits on chip, for radii up to ``WIDE_MAX_RADIUS``
-(``wide_fits``), else a simple wide kernel that walks the classes in
-chunks.  ``variant`` says which one a size gets.  The library is compiled
-by ``_build`` (nvcc, ``sm_90a``) into ``pylc_tpu_torch/_build/`` on first
-use, from the checkout's own source, and called through ``ctypes`` on
-PyTorch's current stream.
+sizes the package uses; for every other size at a radius up to
+``WIDE_MAX_RADIUS`` the wide kernel, which makes each pixel's weights once
+and keeps the tile's logits on chip while it walks the classes in chunks
+(the narrow sizes, at most ``GENERIC_CLASSES`` classes at r >= 1,
+``narrow_fits``; 17 to ``MAX_CLASSES`` classes, ``wide_fits``); past that
+radius a generic one-thread-per-pixel kernel up to ``GENERIC_CLASSES``
+classes (and at r = 0) and a simple wide kernel above.  ``variant`` says which one a size gets.  The
+library is compiled by ``_build`` (nvcc, ``sm_90a``) into
+``pylc_tpu_torch/_build/`` on first use, from the checkout's own source,
+and called through ``ctypes`` on PyTorch's current stream.
 
 The iteration is the custom operator ``torch.ops.pylc.crf_iteration``
 (``torch.library``), so that ``torch.export`` records it as one call in a
@@ -43,14 +44,14 @@ SOURCE = _build.source_path("crf_iteration")
 MAX_CLASSES = 128
 MAX_GUIDE = 4
 MAX_RADIUS = 8
-# most classes the generic kernel holds (kGenericC); more run on the wide
-# kernel
+# most classes the generic kernel holds (kGenericC): the narrow sizes; more
+# run on the wide kernels
 GENERIC_CLASSES = 16
 # (C, G, r) with a tiled instantiation (PYLC_K1_TILED_SIZES in the source):
 # both schemas' class counts, an RGB or a grayscale guide, the default radius
 TILED_SIZES = frozenset({(9, 3, 3), (11, 3, 3), (9, 1, 3), (11, 1, 3)})
 # the largest radius the wide kernel is built for (kWideMaxR in the
-# source); more than GENERIC_CLASSES classes at a larger radius run on the
+# source); a larger one runs on the simple forms, the generic kernel and the
 # simple wide kernel
 WIDE_MAX_RADIUS = 5
 
@@ -60,13 +61,23 @@ def wide_fits(C: int, r: int) -> bool:
     return C > GENERIC_CLASSES and r <= WIDE_MAX_RADIUS
 
 
+def narrow_fits(C: int, G: int, r: int) -> bool:
+    """Whether C classes with a G-channel guide at radius r are a narrow
+    size: at most ``GENERIC_CLASSES`` classes outside ``TILED_SIZES`` that
+    the wide kernel takes (``variant`` names them ``narrow<R=r>``); at
+    r = 0 (no window) the generic kernel is the faster and keeps them."""
+    return (C <= GENERIC_CLASSES and (C, G, r) not in TILED_SIZES
+            and 1 <= r <= WIDE_MAX_RADIUS)
+
+
 def variant(C: int, G: int, r: int) -> str:
     """Name of the kernel that a [C, H, W] distribution with a G-channel
-    guide and radius r runs on."""
+    guide and radius r runs on: ``narrow<R=r>`` is the wide kernel's
+    instantiation for radius r at a narrow size."""
     if (C, G, r) in TILED_SIZES:
         return f"tiled<C={C},G={G},R={r}>"
     if C <= GENERIC_CLASSES:
-        return "generic"
+        return f"narrow<R={r}>" if narrow_fits(C, G, r) else "generic"
     return f"wide<R={r}>" if wide_fits(C, r) else "wide-simple"
 
 
@@ -91,6 +102,8 @@ def _library() -> ctypes.CDLL:
     lib.crf_iteration_max_classes.restype = ci
     lib.crf_iteration_wide_fits.argtypes = [ci, ci]
     lib.crf_iteration_wide_fits.restype = ci
+    lib.crf_iteration_is_narrow.argtypes = [ci, ci, ci]
+    lib.crf_iteration_is_narrow.restype = ci
     if lib.crf_iteration_max_classes() != MAX_CLASSES:
         raise RuntimeError("crf_iteration.cu's kMaxC disagrees with "
                            "MAX_CLASSES")
@@ -108,6 +121,12 @@ def _library() -> ctypes.CDLL:
                     raise RuntimeError(
                         "crf_iteration.cu's PYLC_K1_TILED_SIZES disagrees "
                         f"with TILED_SIZES at (C, G, r) = {(C, G, r)}")
+                if bool(lib.crf_iteration_is_narrow(C, G, r)) != \
+                        narrow_fits(C, G, r):
+                    raise RuntimeError(
+                        "crf_iteration.cu's crf_iteration_is_narrow "
+                        "disagrees with narrow_fits at (C, G, r) = "
+                        f"{(C, G, r)}")
     return lib
 
 
@@ -246,8 +265,8 @@ def crf_iteration_generic(q: torch.Tensor, g: torch.Tensor, u: torch.Tensor,
                           ) -> torch.Tensor:
     """``crf_iteration`` on the simple form of its size whatever the
     sizes, CUDA tensors only: the generic kernel up to ``GENERIC_CLASSES``
-    classes, the simple wide kernel above.  The yardstick the tiled and
-    wide kernels are timed against; the package's paths do not call it,
-    and it counts no launch."""
+    classes, the simple wide kernel above.  The yardstick the tiled,
+    narrow and wide kernels are timed against; the package's paths do not
+    call it, and it counts no launch."""
     return _launch(q, g, u, r, sigma_spatial_app, sigma_color,
                    sigma_spatial_sm, w_app, w_sm, eps, generic=True)

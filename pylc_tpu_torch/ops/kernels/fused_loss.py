@@ -8,16 +8,16 @@ that reduces the logits to the 3C + 4 statistics all three losses need;
 gradient per pixel from those statistics.  The kernels are
 ``pylc_tpu_torch/csrc/fused_loss.cu`` (its header gives the math, the
 bounds and the design), built by ``_build`` and called through ``ctypes``
-on PyTorch's current stream.  K2a has one kernel for every accepted
-layout, with the class count at compile time for 9 and 11 classes
-(``forward_variant``).  K2b has two kernels, and ``backward_variant`` says
-which one a logits tensor gets: one that stages a block's span through
-shared memory, for dense ``channels_last`` logits with 9 or 11 classes,
-and a direct one for every other accepted layout.  Above
-``NARROW_CLASSES`` classes, up to ``MAX_CLASSES`` (the Pallas loss's
-limit), K2a has a wide kernel that holds no per-class array in
-registers, and K2b a wide staged kernel for dense ``channels_last``
-logits beside a wide direct one for every other layout.
+on PyTorch's current stream.  Up to ``NARROW_CLASSES`` classes K2a has
+one kernel for every accepted layout, with the class count at compile
+time for 9 and 11 classes (``forward_variant``).  K2b has two kernels,
+and ``backward_variant`` says which one a logits tensor gets: one that
+stages a block's span through shared memory, for dense ``channels_last``
+logits with 9 or 11 classes, and a direct one for every other accepted
+layout.  Above ``NARROW_CLASSES`` classes, up to ``MAX_CLASSES`` (the
+Pallas loss's limit), K2a and K2b each have a wide staged kernel for
+dense ``channels_last`` logits and a wide kernel for every other layout,
+none of which holds a per-class array in registers.
 
 Logits are ``[B, C, H, W]`` f32, either contiguous NCHW or
 ``channels_last`` (the train step hands over the latter); targets are
@@ -74,9 +74,10 @@ def _library() -> ctypes.CDLL:
     lib.fused_loss_max_classes.argtypes = []
     lib.fused_loss_max_classes.restype = ci
     lib.fused_loss_forward_f32.argtypes = [vp, vp, vp, vp, vp, ci, cl, cl,
-                                           cl, cl, cl, ci, cf, cf, cf, vp]
+                                           cl, cl, cl, ci, cf, cf, cf, ci,
+                                           vp]
     lib.fused_loss_forward_f32.restype = ci
-    lib.fused_loss_forward_variant.argtypes = [ci]
+    lib.fused_loss_forward_variant.argtypes = [vp, ci, cl, cl, cl, cl]
     lib.fused_loss_forward_variant.restype = ci
     lib.fused_loss_backward_f32.argtypes = [vp, vp, vp, vp, vp, vp, ci, cl,
                                             cl, cl, cl, cl, ci, cf, cf, cf,
@@ -234,19 +235,31 @@ VARIANTS = {4: "wide-staged", 3: "wide", 2: "staged<C={C}>",
             1: "direct<C={C}>", 0: "direct<runtime C>"}
 
 
-def forward_variant_code(logits: torch.Tensor) -> int:
-    """Which instantiation of K2a's kernel ``logits`` gets, as the
-    library's dispatch decides it: 1 a compile-time class count, 0 a
-    run-time class count held in registers, 3 the wide kernel."""
+def _flat(logits: torch.Tensor) -> bool:
+    """Whether ``logits`` (an accepted layout) is dense channels_last: class
+    stride 1, pixel stride C, batch stride H*W*C."""
+    B, C, H, W = logits.shape
+    return (logits.stride(1) == 1 and _pixel_stride(logits) == C
+            and logits.stride(0) == H * W * C)
+
+
+def forward_variant_code(logits: torch.Tensor, aligned: bool = True) -> int:
+    """Which K2a kernel ``logits`` (an accepted layout) gets, as the
+    library's dispatch decides it: 1 the direct kernel with a compile-time
+    class count, 0 with a run-time class count held in registers, whatever
+    the layout; above ``NARROW_CLASSES`` classes 4 the wide staged kernel
+    (dense channels_last, logits 16-byte aligned) and 3 the wide kernel
+    (any other layout)."""
     C = logits.shape[1]
     if C > NARROW_CLASSES:
-        return 3
+        return 4 if _flat(logits) and aligned else 3
     return 1 if C in KNOWN_CLASSES else 0
 
 
 def forward_variant(logits: torch.Tensor) -> str:
     """Name of the K2a kernel that ``logits`` runs on."""
-    return VARIANTS[forward_variant_code(logits)].format(C=logits.shape[1])
+    code = forward_variant_code(logits, logits.data_ptr() % 16 == 0)
+    return VARIANTS[code].format(C=logits.shape[1])
 
 
 def backward_variant_code(logits: torch.Tensor, aligned: bool = True) -> int:
@@ -258,14 +271,13 @@ def backward_variant_code(logits: torch.Tensor, aligned: bool = True) -> int:
     run-time class count held in registers; above ``NARROW_CLASSES``
     classes 4 the wide staged kernel (dense channels_last, aligned) and 3
     the wide direct kernel (any other layout)."""
-    B, C, H, W = logits.shape
-    flat = (logits.stride(1) == 1 and _pixel_stride(logits) == C
-            and logits.stride(0) == H * W * C)
+    C = logits.shape[1]
+    staged = _flat(logits) and aligned
     if C > NARROW_CLASSES:
-        return 4 if flat and aligned else 3
+        return 4 if staged else 3
     if C not in KNOWN_CLASSES:
         return 0
-    return 2 if flat and aligned else 1
+    return 2 if staged else 1
 
 
 def backward_variant(logits: torch.Tensor) -> str:
@@ -274,16 +286,8 @@ def backward_variant(logits: torch.Tensor) -> str:
     return VARIANTS[code].format(C=logits.shape[1])
 
 
-def fused_loss_forward(logits: torch.Tensor, target: torch.Tensor,
-                       class_weights: Optional[torch.Tensor],
-                       w: LossWeights) -> torch.Tensor:
-    """K2a: the statistics vector acc [3C + 4] f32 of ``logits``
-    [B, C, H, W] against ``target`` [B, H, W].
-
-    A CPU tensor goes through ``fused_forward_reference``; a CUDA tensor
-    through the kernel ``forward_variant`` names, or this raises."""
-    if logits.device.type == "cpu":
-        return fused_forward_reference(logits, target, class_weights, w)
+def _launch_forward(logits, target, class_weights, w,
+                    direct: bool) -> torch.Tensor:
     if logits.device.type != "cuda":
         raise ValueError(f"fused_loss_forward: no kernel for device "
                          f"{logits.device}")
@@ -298,12 +302,37 @@ def fused_loss_forward(logits: torch.Tensor, target: torch.Tensor,
         err = lib.fused_loss_forward_f32(
             logits.data_ptr(), target.data_ptr(), cw.data_ptr(),
             workspace.data_ptr(), acc.data_ptr(), C, N, HW, sB, sC, sP,
-            int(w.weighted), w.fl_alpha, w.fl_gamma, w.eps, stream)
+            int(w.weighted), w.fl_alpha, w.fl_gamma, w.eps, int(direct),
+            stream)
     if err != 0:
         raise RuntimeError(f"fused_loss_forward kernel launch failed: CUDA "
                            f"error {err}")
+    return acc
+
+
+def fused_loss_forward(logits: torch.Tensor, target: torch.Tensor,
+                       class_weights: Optional[torch.Tensor],
+                       w: LossWeights) -> torch.Tensor:
+    """K2a: the statistics vector acc [3C + 4] f32 of ``logits``
+    [B, C, H, W] against ``target`` [B, H, W].
+
+    A CPU tensor goes through ``fused_forward_reference``; a CUDA tensor
+    through the kernel ``forward_variant`` names, or this raises."""
+    if logits.device.type == "cpu":
+        return fused_forward_reference(logits, target, class_weights, w)
+    acc = _launch_forward(logits, target, class_weights, w, direct=False)
     fused_loss_forward.launches += 1
     return acc
+
+
+def fused_loss_forward_direct(logits: torch.Tensor, target: torch.Tensor,
+                              class_weights: Optional[torch.Tensor],
+                              w: LossWeights) -> torch.Tensor:
+    """``fused_loss_forward`` on the direct kernel whatever the layout (the
+    wide kernel above ``NARROW_CLASSES`` classes), CUDA tensors only: the
+    yardstick the wide staged kernel is timed against.  The package's
+    paths do not call it, and it counts no launch."""
+    return _launch_forward(logits, target, class_weights, w, direct=True)
 
 
 def _launch_backward(logits, target, class_weights, acc, cotangent, w,

@@ -12,9 +12,11 @@ on CUDA device 0, each as the mean of 200 launches from a loop on the host
 card, this is the host's time) and as the mean of 50 launches replayed
 from a CUDA graph (``*_g_ms``: the card's time); then, from graphs only,
 the wide kernels of a schema past 16 classes: K1 at C=20 on the same grid
-and at C=128 on 512x512, K2a and K2b at [8, 20, 512, 512] and K2b at
-[8, 128, 512, 512], channels_last.  It prints one JSON line.  With ``--against DIR`` (another
-checkout of this repository, say the parent commit unpacked by ``git
+and at C=128 on 512x512, K2a and K2b at [8, 20, 512, 512] and
+[8, 128, 512, 512], channels_last; and K1 at narrow sizes on the same grid
+(``k1_c<C>g<G>r<r>``: C=9, G=3 at r = 2, 4, 5; C=11, G=1 at r=5; C=16
+and C=6, G=3 at r=3).  It prints one JSON line.  With ``--against DIR``
+(another checkout of this repository, say the parent commit unpacked by ``git
 archive``) it times DIR, this, this, DIR, ``--rounds`` times over, each in
 a process of its own on the same card, and prints every line and the
 medians.  Each process builds its checkout's kernels first (nvcc, a few
@@ -74,26 +76,25 @@ w = LossWeights()
 ct = torch.tensor(0.75, device=dev)
 out = {}
 
-def k1(key, C, H, W, loop):
+def k1(key, C, H, W, loop, G=3, r=3):
     q = rng.random((C, H, W)).astype(np.float32); q /= q.sum(0, keepdims=True)
-    g = rng.integers(0, 256, (3, H, W)).astype(np.float32)
+    g = rng.integers(0, 256, (G, H, W)).astype(np.float32)
     u = np.log(q + 1e-8)
     q, g, u = (torch.from_numpy(a).to(dev) for a in (q, g, u))
-    fn = lambda: crf_iteration(q, g, u, 3, *sig)
+    fn = lambda: crf_iteration(q, g, u, r, *sig)
     if loop:
         out[key + "_ms"] = ms(fn)
     out[key + "_g_ms"] = g_ms(fn)
 
-def k2(key, C, loop, fwd=True):
+def k2(key, C, loop):
     x = torch.from_numpy(rng.normal(size=(8, C, 512, 512)).astype(np.float32)
                          * 3).to(dev).contiguous(memory_format=torch.channels_last)
     t = torch.from_numpy(rng.integers(0, C, (8, 512, 512)).astype(np.uint8)
                          ).to(dev)
     cw = torch.ones(C, device=dev)  # given, so that no launch makes them
     acc = fused_loss_forward(x, t, cw, w)
-    fns = {"k2b" + key: lambda: fused_loss_backward(x, t, cw, acc, ct, w)}
-    if fwd:
-        fns["k2a" + key] = lambda: fused_loss_forward(x, t, cw, w)
+    fns = {"k2b" + key: lambda: fused_loss_backward(x, t, cw, acc, ct, w),
+           "k2a" + key: lambda: fused_loss_forward(x, t, cw, w)}
     for name, fn in sorted(fns.items()):
         if loop:
             out[name + "_ms"] = ms(fn)
@@ -103,8 +104,11 @@ k1("k1", 9, 1024, 1792, True)
 k2("", 9, True)
 k1("k1_wide20", 20, 1024, 1792, False)
 k1("k1_wide128", 128, 512, 512, False)
+for C, G, r in ((9, 3, 2), (9, 3, 4), (9, 3, 5), (11, 1, 5), (16, 3, 3),
+                (6, 3, 3)):
+    k1(f"k1_c{C}g{G}r{r}", C, 1024, 1792, False, G, r)
 k2("_wide20", 20, False)
-k2("_wide128", 128, False, fwd=False)
+k2("_wide128", 128, False)
 out = {"card": subprocess.run(
            ["nvidia-smi", "--query-gpu=name,power.limit",
             "--format=csv,noheader"], capture_output=True, text=True,

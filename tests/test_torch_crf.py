@@ -192,15 +192,20 @@ def test_kernel_source_and_build_flags():
 @pytest.mark.parametrize("size,name", [
     ((9, 3, 3), "tiled<C=9,G=3,R=3>"), ((11, 3, 3), "tiled<C=11,G=3,R=3>"),
     ((9, 1, 3), "tiled<C=9,G=1,R=3>"), ((11, 1, 3), "tiled<C=11,G=1,R=3>"),
-    ((11, 3, 2), "generic"), ((9, 3, 4), "generic"), ((7, 3, 3), "generic"),
-    ((9, 2, 3), "generic"), ((16, 4, 8), "generic"),
+    ((11, 3, 2), "narrow<R=2>"), ((9, 3, 4), "narrow<R=4>"),
+    ((7, 3, 3), "narrow<R=3>"), ((9, 2, 3), "narrow<R=3>"),
+    ((16, 4, 8), "generic"),
     pytest.param((17, 3, 3), "wide<R=3>", id="size9-wide"),
     pytest.param((20, 1, 3), "wide<R=3>", id="size10-wide"),
-    pytest.param((128, 4, 8), "wide-simple", id="size11-wide")])
+    pytest.param((128, 4, 8), "wide-simple", id="size11-wide"),
+    ((1, 1, 0), "generic"), ((16, 4, 5), "narrow<R=5>"),
+    ((9, 3, 6), "generic"), ((11, 1, 7), "generic")])
 def test_variant_choice(size, name):
     """Which kernel a size runs on: the tiled one for the sizes the
     package uses (both schemas, RGB or grayscale guide, default radius);
-    above 16 classes the wide kernel up to its largest radius."""
+    up to their largest radius the wide kernel for every other size (of
+    at most 16 classes, ``narrow``, from r = 1); past it, and for at most
+    16 classes at r = 0, the generic and the simple wide kernel."""
     assert K.variant(*size) == name
 
 
@@ -221,13 +226,30 @@ WIDE_BOUNDARIES = [            # (C, G, H, W, r, kernel)
     (17, 1, 12, 9, 6, "wide-simple"),
     (20, 4, 13, 11, 8, "wide-simple"),
 ]
+# at most 16 classes outside the tiled list: the wide kernel at each
+# radius from 1 to its largest (1 to 16 classes, a chunk of kWideK = 4
+# classes with 3, 2 or no zero planes, each guide width) and the generic
+# kernel at r = 0 and past them
+NARROW_SIZES = [               # (C, G, H, W, r, kernel)
+    (1, 1, 7, 9, 0, "generic"),
+    (10, 3, 9, 7, 0, "generic"),
+    (2, 3, 9, 11, 1, "narrow<R=1>"),
+    (6, 4, 10, 13, 2, "narrow<R=2>"),
+    (16, 1, 11, 6, 2, "narrow<R=2>"),
+    (10, 1, 11, 9, 4, "narrow<R=4>"),
+    (1, 4, 8, 11, 4, "narrow<R=4>"),
+    (16, 3, 9, 14, 5, "narrow<R=5>"),
+    (6, 1, 13, 10, 5, "narrow<R=5>"),
+    (2, 1, 7, 13, 8, "generic"),
+    (16, 4, 12, 9, 8, "generic"),
+]
 
 
-@pytest.mark.parametrize("C,G,H,W,r,kernel", WIDE_BOUNDARIES)
+@pytest.mark.parametrize("C,G,H,W,r,kernel", WIDE_BOUNDARIES + NARROW_SIZES)
 def test_reference_iteration_matches_pallas_at_wide_boundaries(C, G, H, W, r,
                                                               kernel):
-    """Each size at an edge of the wide dispatch runs on the kernel named,
-    and its plain version agrees with the Pallas kernel."""
+    """Each size at an edge of the wide and narrow dispatch runs on the
+    kernel named, and its plain version agrees with the Pallas kernel."""
     assert K.variant(C, G, r) == kernel
     rng = np.random.default_rng(C * 10 + r)
     q = rng.random((C, H, W)).astype(np.float32)
@@ -252,6 +274,41 @@ def test_wide_dispatch_is_the_sources():
         assert [K.wide_fits(C, r) for C in range(1, K.MAX_CLASSES + 1)] == \
             [K.GENERIC_CLASSES < C and r <= K.WIDE_MAX_RADIUS
              for C in range(1, K.MAX_CLASSES + 1)]
+
+
+def test_narrow_dispatch_is_the_sources():
+    """Every size of at most 16 classes outside the tiled list runs on the
+    wide kernel from r = 1 up to its largest radius (``narrow<R=r>``), on
+    the generic kernel at r = 0 and past it: the source's dispatch
+    (crf_iteration_f32 and
+    crf_iteration_is_narrow, the latter checked against ``narrow_fits`` on
+    the card at every load) and ``variant`` agree."""
+    import re
+    with open(K.SOURCE) as f:
+        src = f.read()
+    assert "bool wide_fits(int r) { return r <= kWideMaxR; }" in src
+    assert "bool narrow_fits(int r) { return r >= 1 && wide_fits(r); }" in src
+    body = re.search(r'extern "C" int crf_iteration_is_narrow\(int C, int G, '
+                     r'int r\) \{(.*?)\n\}', src, re.S).group(1)
+    assert ("C <= kGenericC && !crf_iteration_is_tiled(C, G, r) && "
+            "narrow_fits(r)") in " ".join(body.split())
+    entry = src[src.index('extern "C" int crf_iteration_f32('):]
+    tiled = entry.index("PYLC_K1_TILED_SIZES(PYLC_K1_LAUNCH)")
+    radius = entry.index("switch ((C > kGenericC ? wide_fits(r) : "
+                         "narrow_fits(r)) ? r : -1) {")
+    assert tiled < radius  # a tiled size never reaches the wide kernel
+    for r in range(K.WIDE_MAX_RADIUS + 1):
+        assert f"case {r}: return launch_wide<{r}>(a, C, G);" in entry
+    assert ("return C > kGenericC ? launch_wide_simple(a, C, G, r)\n"
+            "                       : launch_generic(a, C, G, r);") in entry
+    for C in range(1, K.GENERIC_CLASSES + 1):
+        for G in range(1, K.MAX_GUIDE + 1):
+            for r in range(K.MAX_RADIUS + 1):
+                want = ("tiled" if (C, G, r) in K.TILED_SIZES else
+                        f"narrow<R={r}>" if 1 <= r <= K.WIDE_MAX_RADIUS
+                        else "generic")
+                assert K.variant(C, G, r).split("<C=")[0] == want
+                assert K.narrow_fits(C, G, r) == want.startswith("narrow")
 
 
 def test_tiled_sizes_are_the_sources():

@@ -267,13 +267,18 @@ def test_backward_variant_choice(logits, aligned, code, name):
     (_cl(2, 10, 4, 4), 0, "direct<runtime C>"),
     (_cl(2, 1, 4, 4), 0, "direct<runtime C>"),         # one class
     (torch.zeros(2, 16, 3, 3), 0, "direct<runtime C>"),
-    (_cl(2, 17, 4, 4), 3, "wide"),
+    (_cl(2, 17, 4, 4), 4, "wide-staged"),
     (torch.zeros(2, 20, 3, 3), 3, "wide"),
-    (_cl(1, 128, 5, 3), 3, "wide"),
+    (_cl(1, 128, 5, 3), 4, "wide-staged"),
+    (_cl(2, 20, 1, 7), 4, "wide-staged"),              # H = 1
+    (_cl(1, 33, 5, 1), 4, "wide-staged"),              # W = 1
+    (torch.zeros(1, 17, 5, 3), 3, "wide"),
+    (torch.zeros(1, 128, 4, 4), 3, "wide"),
 ], ids=lambda v: v if isinstance(v, str) else None)
 def test_forward_variant_choice(logits, code, name):
-    """Which instantiation of K2a's one kernel a tensor gets: by the class
-    count alone, whatever the layout."""
+    """Which K2a kernel a tensor gets: up to 16 classes by the class count
+    alone, whatever the layout; above, the wide staged kernel for dense
+    channels_last logits and the wide kernel for contiguous NCHW."""
     assert fl.forward_variant_code(logits) == code
     assert fl.VARIANTS[code].format(C=logits.shape[1]) == name
     assert fl.forward_variant(logits) == name
@@ -281,16 +286,27 @@ def test_forward_variant_choice(logits, code, name):
 
 def test_forward_variant_takes_an_unaligned_pointer():
     """A view 4 bytes into 16-byte aligned storage is dense channels_last
-    and not aligned: K2b's direct kernel, and K2a's kernel as ever."""
-    flat = torch.zeros(2 * 4 * 4 * 9 + 1)
-    assert flat.data_ptr() % 16 == 0
-    x = flat[1:].view(2, 4, 4, 9).permute(0, 3, 1, 2)
-    assert x.is_contiguous(memory_format=torch.channels_last)
-    assert x.data_ptr() % 16 == 4
+    and not aligned: K2b's direct kernel, K2a's direct kernel as ever up
+    to 16 classes, and above them the wide kernels where aligned logits
+    get the wide staged ones."""
+    def unaligned(C):
+        flat = torch.zeros(2 * 4 * 4 * C + 1)
+        assert flat.data_ptr() % 16 == 0
+        x = flat[1:].view(2, 4, 4, C).permute(0, 3, 1, 2)
+        assert x.is_contiguous(memory_format=torch.channels_last)
+        assert x.data_ptr() % 16 == 4
+        return x
+
+    x = unaligned(9)
     assert fl.backward_variant(x) == "direct<C=9>"
     assert fl.backward_variant(_cl(2, 9, 4, 4)) == "staged<C=9>"
     assert fl.forward_variant(x) == fl.forward_variant(_cl(2, 9, 4, 4)) \
         == "direct<C=9>"
+    x = unaligned(20)
+    assert fl.forward_variant_code(x, aligned=False) == 3
+    assert fl.forward_variant(x) == fl.backward_variant(x) == "wide"
+    assert fl.forward_variant(_cl(2, 20, 4, 4)) == \
+        fl.backward_variant(_cl(2, 20, 4, 4)) == "wide-staged"
 
 
 def test_backward_variant_known_classes_are_the_schemas_and_odd():
@@ -374,6 +390,15 @@ def _pallas_statistics(x_nhwc, t, cw, jw):
     ((1, 11, 37, 29), False, True),    # contiguous NCHW
     ((3, 10, 4, 6), True, True),       # run-time class count
     ((2, 4, 33, 65), False, False),
+    # past 16 classes: the wide staged kernel (channels_last; its span of
+    # 256, 128 or 64 pixels changes at 33 and 65 classes) and the wide
+    # kernel (contiguous NCHW)
+    ((1, 17, 7, 9), True, True),
+    ((2, 20, 9, 11), True, False),
+    ((2, 20, 9, 11), False, True),
+    ((2, 33, 5, 7), True, True),
+    ((1, 128, 5, 6), True, False),
+    ((1, 128, 4, 5), False, True),
 ])
 def test_plain_forward_at_each_variants_layout(shape, cl, weighted):
     """The plain K2a on the layouts of each kernel variant, with an N no
@@ -383,6 +408,7 @@ def test_plain_forward_at_each_variants_layout(shape, cl, weighted):
     x, t, cw = _inputs(9, B, H, W, C, out_of_range=True)
     xt = _torch_x(x, channels_last=cl).detach()
     assert fl.forward_variant(xt) == (
+        ("wide-staged" if cl else "wide") if C > fl.NARROW_CLASSES else
         f"direct<C={C}>" if C in fl.KNOWN_CLASSES else "direct<runtime C>")
     got = fl.fused_loss_forward(xt, torch.from_numpy(t),
                                 torch.from_numpy(cw),
@@ -435,6 +461,10 @@ def test_direct_yardstick_has_no_cpu_form():
             xt, torch.from_numpy(t), None, torch.zeros(31),
             torch.tensor(1.0), LossWeights())
     assert fl.fused_loss_backward.launches == 0
+    with pytest.raises(ValueError, match="no kernel for device cpu"):
+        fl.fused_loss_forward_direct(xt, torch.from_numpy(t), None,
+                                     LossWeights())
+    assert fl.fused_loss_forward.launches == 0
 
 
 def test_kernel_source_states_the_bound():
