@@ -15,20 +15,20 @@ Phases, in order; any failed check raises, and the script exits non-zero:
            a grayscale photo, at a ragged shape of each of the four tiled
            instantiations; at the narrow sizes (at most 16 classes
            outside the tiled list, on the wide kernel's instantiations) on
-           the slice's 1024x1792 grid at r = 2, 4 and 5, with 11 classes
-           and a grayscale guide at r = 5, with 16 and with 6 classes at
-           r = 3, and at ragged shapes of 1 to 16 classes and r = 1 to 5
-           (one per instantiation), and on the generic kernel at r = 0 and
-           past them (r = 7); on the wide kernel (17 to 128
-           classes) at 20 classes on the slice's 1024x1792 grid, at 64 and
-           128 classes on 512x512, and at ragged shapes of 17 to 128
-           classes and r = 0 to 5 (one per instantiation) and on the
-           simple wide kernel past them (r = 8 with a 4-channel guide);
-           per shape the kernel that ran, its time, the plain version's,
-           the simple form's (the generic or simple wide kernel, in turns
-           with it) and the bound.  Fails if a tiled, narrow or wide
-           instantiation, the generic kernel or the simple wide kernel was
-           not launched.
+           the slice's 1024x1792 grid at r = 2, 4, 5, 6, 7 and 8, with 11
+           classes and a grayscale guide at r = 5 and 8, with 16 and with
+           6 classes at r = 3, and at ragged shapes of 1 to 16 classes and
+           r = 1 to 8 (one per instantiation; the largest, 16 classes and
+           a 4-channel guide at r = 8), and on the generic kernel at r = 0;
+           on the wide kernel (17 to 128 classes) at 20 classes on the
+           slice's 1024x1792 grid at r = 3, 6 and 8, at 64 and 128 classes
+           on 512x512 (128 at r = 3 and 8), and at ragged shapes of 17 to
+           128 classes and r = 0 to 8 (one per instantiation; the largest,
+           128 classes and a 4-channel guide at r = 8); per shape the
+           kernel that ran, its time, the plain version's, the simple
+           form's (the generic or simple wide kernel, in turns with it)
+           and the bound.  Fails if a tiled, narrow or wide instantiation
+           or the generic kernel was not launched.
   [k2]     K2a and K2b against their plain versions at the training
            slice's [8, 9, 512, 512] channels_last logits (weighted and
            not), at a ragged channels_last [3, 9, 61, 53], a ragged
@@ -64,10 +64,10 @@ Phases, in order; any failed check raises, and the script exits non-zero:
            map and mask equal, K1 launched 5 x 4 times, total wall and
            MP/s of both, each photo's completion time, peak memory, and
            the device's busy time per photo under ``torch.profiler``.
-  [radius] ``test --crf_radius 5``: [slice]'s model through its ``.pth``
-           with the CRF at radius 5 on a seeded 3584x2048 photo, K1 as
-           ``narrow<R=5>`` 5 times per photo, the class map against the
-           plain CRF.
+  [radius] ``test --crf_radius 5`` and ``8``: [slice]'s model through its
+           ``.pth`` with the CRF at radius 5, then 8, each on a seeded
+           3584x2048 photo, K1 as ``narrow<R=5>`` and ``narrow<R=8>`` 5
+           times per photo, the class map against the plain CRF.
   [cli]    the ``test`` CLI on a 3872x2592 JPEG.
   [serve]  the serving path: ``server.build_service`` on [slice]'s
            ``.pth`` with the CRF, behind a ThreadingHTTPServer on an
@@ -214,8 +214,8 @@ K1_SHAPES = [                  # (C, G, H, W, r)
     (11, 1, 1024, 1792, 5),
     (16, 3, 1024, 1792, 3),
     (6, 3, 1024, 1792, 3),
-    # ragged, one per radius, at 1, 6 and 16 classes (r = 0, no window:
-    # the generic kernel)
+    # ragged, one per radius, at 1 to 16 classes (r = 0, no window: the
+    # generic kernel)
     (1, 1, 37, 70, 0),
     (6, 3, 45, 53, 1),
     (16, 4, 29, 66, 2),
@@ -223,10 +223,17 @@ K1_SHAPES = [                  # (C, G, H, W, r)
     (1, 3, 37, 70, 3),
     (6, 1, 45, 53, 4),
     (16, 3, 37, 70, 5),
-    (9, 3, 37, 70, 7),         # past its radii: the generic kernel
+    (5, 2, 45, 53, 6),         # one window row a thread (r = 6 to 8)
+    (9, 3, 37, 70, 7),
+    (16, 4, 29, 66, 8),        # the largest narrow size
+    # radii 6 to 8 on the slice's grid: schema_a, and schema_b beside a
+    # grayscale photo at r = 8
+    (9, 3, 1024, 1792, 6),
+    (9, 3, 1024, 1792, 7),
+    (9, 3, 1024, 1792, 8),
+    (11, 1, 1024, 1792, 8),
     # more classes than the generic kernel holds: the wide kernel, one
-    # shape per radius it is built for, and the simple wide kernel past
-    # them
+    # shape per radius (the simple wide kernel in turns with each)
     (20, 3, 1024, 1792, 3),    # a 20-class schema on the slice's grid
     (64, 3, 512, 512, 3),      # wider schemas, where the plain version
     (128, 3, 512, 512, 3),     # still fits the card
@@ -237,8 +244,14 @@ K1_SHAPES = [                  # (C, G, H, W, r)
     (31, 4, 45, 53, 1),
     (33, 3, 29, 66, 2),
     (104, 3, 37, 70, 4),
-    (128, 4, 37, 70, 5),       # the largest sizes the wide kernel takes
-    (20, 4, 29, 66, 8),        # the largest guide and radius: simple wide
+    (128, 4, 37, 70, 5),       # the largest sizes of row pairs
+    (24, 3, 45, 53, 6),        # one window row a thread (r = 6 to 8)
+    (40, 2, 37, 70, 7),
+    (20, 4, 29, 66, 8),
+    (128, 4, 37, 70, 8),       # the largest sizes the wide kernel takes
+    (20, 3, 1024, 1792, 6),    # a 20-class schema at r = 6 and 8
+    (20, 3, 1024, 1792, 8),
+    (128, 3, 512, 512, 8),
 ]
 K1_ATOL = 1e-5                 # f32, no fast math; measured ~2e-7
 CRF_AGREEMENT = 0.999          # class maps, kernel CRF vs plain CRF
@@ -300,7 +313,7 @@ DATA_AGREEMENT = 0.999         # oversample card vs CPU, pixel share
 DATA_PROFILE_RTOL = 1e-5       # px_mean / px_std, card vs CPU (f32 sums)
 ZOO_STEPS = 5                  # train steps on one fixed batch, per model
 ZOO_PHOTO_HW = (1024, 1024)    # MobileNetV2, DRN-D-54 and ResUNet
-RADIUS_PHOTO_R = 5             # [radius]: `test --crf_radius 5`
+RADIUS_PHOTO_R = (5, 8)        # [radius]: `test --crf_radius 5` and 8
 WIDE_CLASSES = 20              # [wide]: a user's schema past 16 classes
 WIDE_PHOTO_HW = (1024, 1024)
 MULTI_BANDS = (2, 3, 4)        # [multi]: Mesh([cuda:0] * n)
@@ -409,11 +422,15 @@ def bound(n_bytes: float, n_flop: float):
 
 
 def k1_bound(C, G, H, W, r):
-    """K1 reads q, u [C, H, W] and g [G, H, W] once and writes [C, H, W];
-    per pixel and window offset it does 2C FMAs (4C flop), the guide
-    distance (3G) and the weight (about 8: the exp and two products)."""
+    """K1 reads q, u [C, H, W] and g [G, H, W] once and writes [C, H, W].
+    Per pixel and window offset the least it must do: one FMA a class
+    (2C flop: both messages are linear in the same q, so their weights
+    fold into one coefficient), the guide distance (3G), the weight (about
+    8: the exp and two products), its sum (1) and the coefficient (one
+    FMA, 2)."""
     window = (2 * r + 1) ** 2 - 1
-    return bound((3 * C + G) * H * W * 4, H * W * window * (4 * C + 3 * G + 8))
+    return bound((3 * C + G) * H * W * 4,
+                 H * W * window * (2 * C + 3 * G + 11))
 
 
 def k2_bounds(B, C, H, W):
@@ -544,8 +561,7 @@ def phase_k1(device):
     if not at_slice["variant"].startswith("tiled"):
         raise AssertionError(f"the slice's shape ran {at_slice['variant']}, "
                              "not a tiled instantiation")
-    must = {variant(*size) for size in TILED_SIZES} | {
-        "wide-simple", "generic"} | {
+    must = {variant(*size) for size in TILED_SIZES} | {"generic"} | {
         f"wide<R={r}>" for r in range(WIDE_MAX_RADIUS + 1)} | {
         f"narrow<R={r}>" for r in range(1, WIDE_MAX_RADIUS + 1)}
     missing = must - {c["variant"] for c in checked}
@@ -793,17 +809,20 @@ def phase_slice(device, workdir, cfg_base=None, hw=SLICE_HW):
 
 
 def phase_radius(device, pth):
-    """``test --crf_radius 5``: [slice]'s model and photo size with the CRF
-    at radius RADIUS_PHOTO_R, K1 as ``narrow<R=5>``.  Returns K1's
-    launches."""
+    """``test --crf_radius 5`` and ``8``: [slice]'s model and photo size
+    with the CRF at each radius of RADIUS_PHOTO_R, K1 as ``narrow<R=r>``.
+    Returns K1's launches by radius, each photo's count set to 0 just
+    before it."""
     from pylc_tpu_torch.config import Config
     from pylc_tpu_torch.tester import load_model
     cfg, model, _ = load_model(pth, Config(), device)
-    cfg = cfg.replace(crf_radius=RADIUS_PHOTO_R)
-    photo = np.random.default_rng(5).integers(0, 255, (*SLICE_HW, 3),
-                                              dtype=np.uint8)
-    launches, _, _ = drive_photo(f"[radius] r={RADIUS_PHOTO_R}:", cfg, model,
-                                 device, photo, N_PHOTOS, "narrow<")
+    launches = {}
+    for r in RADIUS_PHOTO_R:
+        photo = np.random.default_rng(r).integers(0, 255, (*SLICE_HW, 3),
+                                                  dtype=np.uint8)
+        launches[r], _, _ = drive_photo(
+            f"[radius] r={r}:", cfg.replace(crf_radius=r), model, device,
+            photo, N_PHOTOS, f"narrow<R={r}>")
     return launches
 
 
@@ -2604,7 +2623,7 @@ def main() -> int:
     # each path's launches: the count set to 0 just before it, read just
     # after; "launches" is the first path's
     k1_paths = {"slice": launches, "many": many_launches,
-                "radius_photo": radius_launches,
+                **{f"radius{r}_photo": n for r, n in radius_launches.items()},
                 "serve": serve_launches, "artifact": artifact_launches,
                 "wide_photo": wide_launches, "banded_photo": banded_launches,
                 **{k: v for k, v in zoo.items() if k.endswith("_photo")}}

@@ -69,7 +69,7 @@
 // loads' latencies in a ~1,000-instruction loop body.
 //
 // narrow<R>, for every other size within C <= 16, G <= 4 at
-// 1 <= r <= kWideMaxR = 5 (another --crf_radius, a schema of another class
+// 1 <= r <= kWideMaxR = 8 (another --crf_radius, a schema of another class
 // count): the wide kernel below, crf_wide_kernel<R>, with 1 to 4 chunks of
 // kWideK classes and zero planes past C.  What the generic kernel spends
 // and it does not: run-time C, G and r (the window loops do not unroll;
@@ -79,7 +79,9 @@
 // H100 80GB HBM3 at 700 W (chip_smoke.py's [k1], a CUDA graph of 50
 // launches, the generic kernel in turns) at C = 9, G = 3 on 1024x1792:
 // r = 2 0.229 ms against 0.450, r = 4 0.633 against 1.109, r = 5 0.744
-// against 1.574; 1.75x to 2.20x at the six narrow shapes of PERF.md.
+// against 1.574; 1.75x to 2.20x at the six narrow shapes of PERF.md; at
+// r = 6, 7, 8 (one window row a thread, below) 1.194, 1.326, 1.533
+// against 2.110, 2.747, 3.924.
 // Tried on the same card and not kept: a narrow template beside it (every
 // chunk staged at once with one wait, no ring, the parts' sums added once
 // at the end, 4-row tiles at r >= 4), a build of each timed in turns
@@ -87,24 +89,23 @@
 // kernel's 0.229, 0.634 and 0.745 at r = 2, 4 and 5; 29% over it at r = 2
 // and at most 7% under it elsewhere, for a second kernel of ~200 lines.
 //
-// crf_generic_kernel, for r = 6 to 8 within C <= 16, G <= 4 (a thread
-// cannot hold those radii's coefficients), and at r = 0 (no window: the
+// crf_generic_kernel, at r = 0 within C <= 16, G <= 4 (no window: the
 // iteration is the softmax of u, and the wide kernel's staging of q and
 // the guide is wasted; 0.0037 ms against its 0.0043 on 37x70 at C = 1, in
 // turns in [k1]): one thread per pixel, runtime sizes, the form this
 // kernel had before the tiled one (0.73 ms at the serving shape against
 // the tiled kernel's time in PERF.md; 58 registers, no stack); every
-// size's yardstick (crf_iteration_generic).
+// narrow size's yardstick (crf_iteration_generic).
 //
 // For 17 to 128 classes (the JAX package's Pallas kernel takes any C; its
 // fused loss stops at 128, and so does this source), G <= 4, two kernels.
-// The first, crf_wide_kernel<R>, also runs the narrow sizes above.
-// Neither can hold a pixel's 2C accumulators in registers or the q window
-// of every class in shared memory (272 KB at C = 128, r = 3), so both walk
-// the classes in chunks.
+// The first, crf_wide_kernel<R>, runs every such size and the narrow sizes
+// above; the second is its yardstick.  Neither can hold a pixel's 2C
+// accumulators in registers or the q window of every class in shared
+// memory (272 KB at C = 128, r = 3), so both walk the classes in chunks.
 //
-// crf_wide_kernel<R>, for r <= kWideMaxR = 5 (R compile-time, C and G at
-// run time).  At C = 20 on the slice's grid one iteration must move
+// crf_wide_kernel<R>, for every r <= kWideMaxR = 8 (R compile-time, C and
+// G at run time).  At C = 20 on the slice's grid one iteration must move
 // (3C + G) H W 4 B = 0.46 GB (0.138 ms at 3.35 TB/s); its work is 48
 // products per pixel and class.  What its design does:
 //   - the window's weights once per launch, in registers: thread (part,
@@ -134,19 +135,50 @@
 // card and not kept: the weights in shared memory (48 KB at r = 3) with two
 // FMAs per term, 0.745 ms (shared-memory loads bound it); the same at
 // 128 threads, 1.18 ms.
+// Past r = kWidePairMaxR = 5 a pair of window rows would be 104 to 136
+// coefficients a thread, and 8-row tiles would need 242 to 270 KB of
+// shared memory at C = 128, so the split changes:
+//   - one window row a thread (52 to 68 coefficients), 2r + 1 = 13 to 17
+//     parts, a 4-row tile: 416 to 544 threads, at most 196,608 B at
+//     C = 128.  544 threads are 17 warps, so a scheduler holds 5 of them
+//     and a thread gets 96 registers: each class's sums go to shared
+//     memory as soon as they are made (4 accumulators live, not 16), and
+//     the guide is read one channel at a time.
+//   - the parts' sums meet through every thread of the block (wide_reduce:
+//     a pixel and class a step, the parts in order), where part 0 alone
+//     would add 12 to 16 others' and take twice the others' time.
+//   - the launch halves the tile where two blocks fit an SM's shared
+//     memory (every size up to 100 classes at r = 8): the same warps an
+//     SM in two blocks whose barriers do not wait for each other.
+// Measured (tools/k1_variants.py --wide: builds of this source with one
+// choice undone, host loops of 100 launches, in turns; H100 80GB HBM3,
+// 700 W): the halving 1.200 against 1.254 ms at C = 9, r = 6 (at C = 128,
+// r = 8 two blocks do not fit and it keeps 4 rows: 1.584); r = 7 compiled
+// for r = 8's 544 threads (96 registers, no spill) 1.334 against 1.362 ms
+// for its own 480 (128 registers, 56 B of spills); at r = 6 that bound
+// spills 40 B.  One window row a thread at r <= 5 too was slower at every
+// radius but 4: 1.35x the pair form's time at r = 2 and 3 (C = 9, 16 and
+// 20 on 1024x1792), 1.18x to 1.21x at C = 6 and at C = 128 on 512x512,
+// 1.37x to 1.42x at r = 5, and 0.93x at r = 4 (C = 9), so both forms stay.
+// Against the simple forms at 1024x1792 (tools/time_kernels.py --against
+// the tree before this form, CUDA graphs, in turns): 1.76x to 2.58x
+// under the generic kernel (C = 9 and 11), 2.64x to 4.56x under the
+// simple wide kernel (C = 20), 4.90x at C = 128 on 512x512.
 //
-// crf_wide_simple_kernel, for r > kWideMaxR (its coefficients would not
-// fit in registers): one thread per pixel, the form the wide kernel had
-// first.  Per chunk of kChunk = 16 classes it stages that chunk's q window
-// beside the guide's (staged once), recomputes the pixel's weights, writes
-// the chunk's logits to `out` and keeps a running max; a second pass over
-// `out` turns the logits into the softmax in place.  Its shared memory is
-// (16 + G)(8 + 2r)(32 + 2r) floats whatever C is (92 KB at G = 4, r = 8).
+// crf_wide_simple_kernel, one thread per pixel, the form the wide kernel
+// had first: no size's dispatch reaches it; it is the yardstick of the
+// sizes past 16 classes (crf_iteration_generic).  Per chunk of kChunk = 16
+// classes it stages that chunk's q window beside the guide's (staged
+// once), recomputes the pixel's weights, writes the chunk's logits to
+// `out` and keeps a running max; a second pass over `out` turns the logits
+// into the softmax in place.  Its shared memory is (16 + G)(8 + 2r)
+// (32 + 2r) floats whatever C is (92 KB at G = 4, r = 8).
 
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
+#include <utility>
 
 namespace {
 
@@ -760,10 +792,22 @@ constexpr int kWideTX = 32;                  // tile columns
 constexpr int kWideStripsX = kWideTX / kPX;  // strips of kPX pixels a row
 constexpr int kWideK = 4;                    // classes per staged chunk
 constexpr int kWideStages = 4;               // chunks staged at a time
-constexpr int kWideRows = 2;                 // window rows per thread
-constexpr int kWideMaxR = 5;                 // largest radius it takes
-constexpr int kWideTY = 8;                   // tile rows (kWideSmallTY on a
-constexpr int kWideSmallTY = 4;              // grid of fewer blocks than SMs)
+constexpr int kWideMaxR = 8;                 // largest radius it takes
+constexpr int kWidePairMaxR = 5;             // largest radius of row pairs
+
+// The tile rows and the thread's window rows depend on the radius.  Up to
+// r = kWidePairMaxR a thread holds a pair of window rows (2 x 4 x (2r+1)
+// coefficients, 88 at r = 5) and the tile is 8 rows; past it one window
+// row (52 to 68) and 4 rows, so that the 2r+1 parts stay within 1,024
+// threads and a thread's registers, and the tile within shared memory.
+// Past kWidePairMaxR the launch halves the tile where two such blocks fit
+// an SM's shared memory (the same warps an SM, in two blocks whose
+// barriers do not wait for each other); at any radius it halves the tile
+// again on a grid of fewer blocks than the card has SMs.
+template <int R>
+constexpr int kWideRows = R <= kWidePairMaxR ? 2 : 1;  // window rows a thread
+template <int R>
+constexpr int kWideTY = R <= kWidePairMaxR ? 8 : 4;
 
 // exp(-(dy^2 + dx^2) / 2 sigma^2) by |dy|, |dx| <= kWideMaxR; the centre's
 // entries are 0
@@ -776,18 +820,35 @@ template <int R>
 constexpr int kWidePad = (R + 3) / 4 * 4;     // x halo, whole float4s
 template <int R>
 constexpr int kWideSW = kWideTX + 2 * kWidePad<R>;  // staged row, floats
+template <int R>   // the window's rows in groups of kWideRows<R>
+constexpr int kWideParts = (2 * R + kWideRows<R>) / kWideRows<R>;
+// threads of a full-height tile: a strip of kPX pixels by a part
 template <int R>
-constexpr int kWideParts = (2 * R + 1 + 1) / kWideRows;  // row pairs
-// threads of a full-height tile: a strip of kPX pixels by a row pair
+constexpr int kWideThreads = kWideStripsX * kWideTY<R> * kWideParts<R>;
+// threads an instantiation is compiled for: its own full tile's, but r = 8's
+// 544 at r = 7.  544 threads (17 warps) leave a thread 96 registers, 416
+// and 480 (r = 6 and 7) 128; at 128 the compiler spills 56 B at r = 7, at
+// 96 none, and at 96 it spills 40 B at r = 6.
 template <int R>
-constexpr int kWideThreads = kWideStripsX * kWideTY * kWideParts<R>;
+constexpr int kWideBoundThreads = R == 7 ? kWideThreads<8> : kWideThreads<R>;
 // blocks an SM should hold: two up to r = 3 (at most 128 registers)
 template <int R>
 constexpr int kWideMinBlocks = R <= 3 ? 2 : 1;
-// floats of the parts' sums: two chunks' of parts 1.., or first the wsums
+// How the parts' sums of a chunk meet.  Up to kWidePairMaxR (at most 6
+// parts) part 0 adds the others' onto the logits; past it (13 to 17 parts)
+// part 0 would take twice the others' time, so every part writes its sums
+// and every thread adds a share of them.
 template <int R>
-constexpr int kWideSums = 2 * (kWideParts<R> - 1) * kWideK > kWideParts<R>
-                              ? 2 * (kWideParts<R> - 1) * kWideK
+constexpr bool kWideSpread = R > kWidePairMaxR;
+// parts whose sums of a chunk go through shared memory
+template <int R>
+constexpr int kWideSumParts = kWideSpread<R> ? kWideParts<R>
+                                             : kWideParts<R> - 1;
+// floats of the parts' sums, in rows of P: those of two chunks (by parity),
+// or first each part's wsums
+template <int R>
+constexpr int kWideSums = 2 * kWideSumParts<R> * kWideK > kWideParts<R>
+                              ? 2 * kWideSumParts<R> * kWideK
                               : kWideParts<R>;
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -877,18 +938,35 @@ __device__ __forceinline__ void wide_finalize(
   }
 }
 
-// The tile is kWideTX x TY pixels (TY = kWideTY, or kWideSmallTY when the
-// grid would have fewer blocks than the card has SMs).  Thread (part,
-// strip) holds kPX pixels of one row of the tile and window rows
-// [kWideRows part, kWideRows (part + 1)).  Shared memory, floats: the
-// logits [classes rounded up to kWideK][P]; the parts' sums, kWideSums<R>
-// rows of P (first each part's wsums, then the sums of parts 1.. for two
-// chunks, by parity); then kWideStages q chunks [kWideK][SH][SW] in a
-// ring, chunk k in slot k % kWideStages (the guide's window [G][SH][SW] in
-// the last slot until the coefficients are made); P = kWideTX TY,
-// SH = TY + 2R.
+// Every thread of the block, where kWideSpread<R>: a share of chunk kc's
+// logits, every part's sums (those of that chunk's parity, in part order)
+// added onto u, one pixel and class per step, lanes on consecutive pixels.
 template <int R>
-__global__ void __launch_bounds__(kWideThreads<R>, kWideMinBlocks<R>)
+__device__ __forceinline__ void wide_reduce(float* __restrict__ sl,
+                                            const float* __restrict__ sums,
+                                            int kc, int C, int P) {
+  const int c0 = kc * kWideK;
+  const int n = min(C - c0, kWideK) * P;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < kWideParts<R>; ++j) s += sums[j * kWideK * P + i];
+    sl[c0 * P + i] += s;
+  }
+}
+
+// The tile is kWideTX x TY pixels (TY = kWideTY<R>, or a half or a
+// quarter of it: launch_wide).  Thread
+// (part, strip) holds kPX pixels of one row of the tile and window rows
+// [kWideRows<R> part, kWideRows<R> (part + 1)).  Shared memory, floats: the
+// logits [classes rounded up to kWideK][P]; the parts' sums, kWideSums<R>
+// rows of P (first each part's wsums, then the sums of kWideSumParts<R>
+// parts for two chunks, by parity); then kWideStages q chunks
+// [kWideK][SH][SW] in a ring, chunk k in slot k % kWideStages (the guide's
+// window [G][SH][SW] in the last slot until the coefficients are made);
+// P = kWideTX TY, SH = TY + 2R.
+template <int R>
+__global__ void __launch_bounds__(kWideBoundThreads<R>, kWideMinBlocks<R>)
 crf_wide_kernel(const float* __restrict__ q, const float* __restrict__ g,
                 const float* __restrict__ u, float* __restrict__ out, int C,
                 int G, int H, int W, int TY, const WideTable tab,
@@ -899,6 +977,8 @@ crf_wide_kernel(const float* __restrict__ q, const float* __restrict__ g,
   constexpr int SW = kWideSW<R>;
   constexpr int kNV = kPX + 2 * kPadW;     // floats a strip reads per row
   constexpr int kParts = kWideParts<R>;
+  constexpr int kSumParts = kWideSumParts<R>;
+  constexpr int kRows = kWideRows<R>;
   constexpr int kTab = kWideMaxR + 1;
   const int P = kWideTX * TY;
   const int SH = TY + 2 * R;
@@ -915,7 +995,7 @@ crf_wide_kernel(const float* __restrict__ q, const float* __restrict__ g,
   const int y0 = by0 - R, x0 = bx0 - kPadW;
   const size_t HW = static_cast<size_t>(H) * W;
   const bool vecb = vec != 0;
-  const int strips = kWideStripsX * TY;   // whole warps
+  const int strips = kWideStripsX * TY;   // threads of a part
   const int part = tid / strips;
   const int st = tid - part * strips;
   const int sy = st / kWideStripsX, sx = st - sy * kWideStripsX;
@@ -939,20 +1019,25 @@ crf_wide_kernel(const float* __restrict__ q, const float* __restrict__ g,
 
   // each pixel's bilateral weights of this part's window rows, once, in
   // registers: gc the strip's guide, aw the weights
+  // (a pair of rows reads the strip's guide once; one row reads each
+  // channel as it uses it, so that its registers go to the coefficients)
   float gc[kMaxG][kPX];
+  const auto load_gc = [&](int j) {
+    const float4 t = *reinterpret_cast<const float4*>(
+        gw + j * plane + (sy + R) * SW + kPadW + kPX * sx);
+    gc[j][0] = t.x; gc[j][1] = t.y; gc[j][2] = t.z; gc[j][3] = t.w;
+  };
+  if constexpr (kRows > 1) {
 #pragma unroll
-  for (int j = 0; j < kMaxG; ++j) {
-    if (j < G) {
-      const float4 t = *reinterpret_cast<const float4*>(
-          gw + j * plane + (sy + R) * SW + kPadW + kPX * sx);
-      gc[j][0] = t.x; gc[j][1] = t.y; gc[j][2] = t.z; gc[j][3] = t.w;
+    for (int j = 0; j < kMaxG; ++j) {
+      if (j < G) load_gc(j);
     }
   }
-  float aw[kWideRows][kPX][kSide];
+  float aw[kRows][kPX][kSide];
   float wsum[kPX] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-  for (int r2 = 0; r2 < kWideRows; ++r2) {
-    const int wy = kWideRows * part + r2;
+  for (int r2 = 0; r2 < kRows; ++r2) {
+    const int wy = kRows * part + r2;
     const int ady = wy < R ? R - wy : wy - R;
 #pragma unroll
     for (int p = 0; p < kPX; ++p) {
@@ -963,6 +1048,7 @@ crf_wide_kernel(const float* __restrict__ q, const float* __restrict__ g,
 #pragma unroll
       for (int j = 0; j < kMaxG; ++j) {
         if (j < G) {
+          if constexpr (kRows == 1) load_gc(j);
           float v[kNV];
           const float* row = gw + j * plane + (sy + wy) * SW + kPX * sx;
 #pragma unroll
@@ -1008,8 +1094,8 @@ crf_wide_kernel(const float* __restrict__ q, const float* __restrict__ g,
 #pragma unroll
     for (int p = 0; p < kPX; ++p) den[p] = w_app / (den[p] + eps);
 #pragma unroll
-    for (int r2 = 0; r2 < kWideRows; ++r2) {
-      const int wy = kWideRows * part + r2;
+    for (int r2 = 0; r2 < kRows; ++r2) {
+      const int wy = kRows * part + r2;
       const int ady = wy < R ? R - wy : wy - R;
 #pragma unroll
       for (int p = 0; p < kPX; ++p) {
@@ -1036,56 +1122,90 @@ crf_wide_kernel(const float* __restrict__ q, const float* __restrict__ g,
                       next, C, TY, SH, y0, x0, by0, bx0, H, W, HW, vecb);
     }
     cp_async_commit();
-    if (part == 0 && k > 0) {
-      wide_finalize<R>(acc, sl, sums + ((k - 1) & 1) * (kParts - 1) *
-                                          kWideK * P,
-                       k - 1, C, P, spx);
+    if (k > 0) {
+      const float* prev = sums + ((k - 1) & 1) * kSumParts * kWideK * P;
+      if constexpr (kWideSpread<R>) {
+        wide_reduce<R>(sl, prev, k - 1, C, P);
+      } else if (part == 0) {
+        wide_finalize<R>(acc, sl, prev, k - 1, C, P, spx);
+      }
     }
     const float* cur = ring + (k % kWideStages) * slot_floats;
+    if constexpr (kWideSpread<R>) {
+      // one window row: each class's sums go to shared memory as soon as
+      // they are made, so that kPX accumulators are live and not kPX kWideK
+      const float* row = cur + (sy + part) * SW + kPX * sx;
+      float* mine = sums + ((k & 1) * kSumParts + part) * kWideK * P + spx;
 #pragma unroll
-    for (int p = 0; p < kPX; ++p) {
+      for (int c = 0; c < kWideK; ++c) {
+        float v[kNV];
 #pragma unroll
-      for (int c = 0; c < kWideK; ++c) acc[p][c] = 0.f;
-    }
+        for (int i = 0; i < kNV / 4; ++i) {
+          const float4 t = *reinterpret_cast<const float4*>(
+              row + c * plane + 4 * i);
+          v[4 * i] = t.x; v[4 * i + 1] = t.y; v[4 * i + 2] = t.z;
+          v[4 * i + 3] = t.w;
+        }
+        float a[kPX] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int r2 = 0; r2 < kWideRows; ++r2) {
-      const int wy = kWideRows * part + r2;
-      if (wy < kSide) {
-        const float* row = cur + (sy + wy) * SW + kPX * sx;
+        for (int p = 0; p < kPX; ++p) {
 #pragma unroll
-        for (int c = 0; c < kWideK; ++c) {
-          float v[kNV];
-#pragma unroll
-          for (int i = 0; i < kNV / 4; ++i) {
-            const float4 t = *reinterpret_cast<const float4*>(
-                row + c * plane + 4 * i);
-            v[4 * i] = t.x; v[4 * i + 1] = t.y; v[4 * i + 2] = t.z;
-            v[4 * i + 3] = t.w;
+          for (int k2 = 0; k2 < kSide; ++k2) {
+            a[p] += aw[0][p][k2] * v[kPadW + p + k2 - R];
           }
+        }
+        *reinterpret_cast<float4*>(mine + c * P) =
+            make_float4(a[0], a[1], a[2], a[3]);
+      }
+    } else {
 #pragma unroll
-          for (int p = 0; p < kPX; ++p) {
+      for (int p = 0; p < kPX; ++p) {
 #pragma unroll
-            for (int k2 = 0; k2 < kSide; ++k2) {
-              acc[p][c] += aw[r2][p][k2] * v[kPadW + p + k2 - R];
+        for (int c = 0; c < kWideK; ++c) acc[p][c] = 0.f;
+      }
+#pragma unroll
+      for (int r2 = 0; r2 < kRows; ++r2) {
+        const int wy = kRows * part + r2;
+        if (wy < kSide) {
+          const float* row = cur + (sy + wy) * SW + kPX * sx;
+#pragma unroll
+          for (int c = 0; c < kWideK; ++c) {
+            float v[kNV];
+#pragma unroll
+            for (int i = 0; i < kNV / 4; ++i) {
+              const float4 t = *reinterpret_cast<const float4*>(
+                  row + c * plane + 4 * i);
+              v[4 * i] = t.x; v[4 * i + 1] = t.y; v[4 * i + 2] = t.z;
+              v[4 * i + 3] = t.w;
+            }
+#pragma unroll
+            for (int p = 0; p < kPX; ++p) {
+#pragma unroll
+              for (int k2 = 0; k2 < kSide; ++k2) {
+                acc[p][c] += aw[r2][p][k2] * v[kPadW + p + k2 - R];
+              }
             }
           }
         }
       }
-    }
-    if (part > 0) {  // this part's sums, for part 0
-      float* mine = sums + ((k & 1) * (kParts - 1) + part - 1) * kWideK * P;
+      if (part > 0) {  // this part's sums, for part 0
+        float* mine = sums + ((k & 1) * kSumParts + part - 1) * kWideK * P;
 #pragma unroll
-      for (int c = 0; c < kWideK; ++c) {
-        *reinterpret_cast<float4*>(mine + c * P + spx) =
-            make_float4(acc[0][c], acc[1][c], acc[2][c], acc[3][c]);
+        for (int c = 0; c < kWideK; ++c) {
+          *reinterpret_cast<float4*>(mine + c * P + spx) =
+              make_float4(acc[0][c], acc[1][c], acc[2][c], acc[3][c]);
+        }
       }
     }
   }
   __syncthreads();
-  if (part == 0) {
-    wide_finalize<R>(acc, sl, sums + ((n_chunks - 1) & 1) * (kParts - 1) *
-                                         kWideK * P,
-                     n_chunks - 1, C, P, spx);
+  {
+    const float* last = sums + ((n_chunks - 1) & 1) * kSumParts * kWideK * P;
+    if constexpr (kWideSpread<R>) {
+      wide_reduce<R>(sl, last, n_chunks - 1, C, P);
+    } else if (part == 0) {
+      wide_finalize<R>(acc, sl, last, n_chunks - 1, C, P, spx);
+    }
   }
   __syncthreads();
 
@@ -1108,25 +1228,29 @@ crf_wide_kernel(const float* __restrict__ q, const float* __restrict__ g,
   }
 }
 
-// Bytes of shared memory crf_wide_kernel takes at C classes, radius r and
-// ty tile rows.
-constexpr size_t wide_smem_bytes(int C, int r, int ty) {
+// Bytes of shared memory crf_wide_kernel<R> takes at C classes and ty tile
+// rows.
+template <int R>
+constexpr size_t wide_smem_bytes(int C, int ty) {
   return sizeof(float) *
-         (static_cast<size_t>(
-              (C + kWideK - 1) / kWideK * kWideK +
-              ((2 * r + 2) / kWideRows > 1
-                   ? 2 * ((2 * r + 2) / kWideRows - 1) * kWideK
-                   : 1)) *
+         (static_cast<size_t>((C + kWideK - 1) / kWideK * kWideK +
+                              kWideSums<R>) *
               kWideTX * ty +
-          static_cast<size_t>(kWideStages * kWideK) * (ty + 2 * r) *
-              (kWideTX + 2 * ((r + 3) / 4 * 4)));
+          static_cast<size_t>(kWideStages * kWideK) * (ty + 2 * R) *
+              kWideSW<R>);
 }
-static_assert(wide_smem_bytes(kMaxC, kWideMaxR, kWideTY) <= 232448,
-              "the largest sizes must fit a block's shared memory");
+template <int... Rs>
+constexpr bool wide_smem_fits(std::integer_sequence<int, Rs...>) {
+  return ((wide_smem_bytes<Rs>(kMaxC, kWideTY<Rs>) <= 232448) && ...);
+}
+static_assert(wide_smem_fits(std::make_integer_sequence<int, kWideMaxR + 1>()),
+              "every radius's largest sizes must fit a block's shared memory");
+static_assert(kWideThreads<kWideMaxR> <= 1024, "a block's threads");
+static_assert(kWideMaxR == kMaxR, "the wide kernel takes every radius");
 
-// Whether radius r is one crf_wide_kernel is built for (its coefficients
-// fit a thread's registers); past it the simple forms run: the simple wide
-// kernel above kGenericC classes, the generic kernel within.
+// Whether radius r is one crf_wide_kernel is built for: every radius the
+// kernel takes (kWideMaxR = kMaxR), so the simple wide kernel runs no
+// size of its own.
 bool wide_fits(int r) { return r <= kWideMaxR; }
 
 // Whether a size of at most kGenericC classes at radius r runs on
@@ -1136,23 +1260,34 @@ bool narrow_fits(int r) { return r >= 1 && wide_fits(r); }
 template <int R>
 int launch_wide(const Args& a, int C, int G) {
   const auto tab = spatial_table<kWideMaxR + 1, WideTable>(a);
-  static int n_sm = 0;  // the card's SMs, read once
-  if (n_sm == 0) {
+  static int n_sm = 0, sm_smem = 0;  // the card's SMs and their shared
+  if (n_sm == 0) {                   // memory, read once
     int dev = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess) {
       e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
     }
+    if (e == cudaSuccess) {
+      e = cudaDeviceGetAttribute(
+          &sm_smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+    }
     if (e != cudaSuccess) return static_cast<int>(e);
   }
+  int ty = kWideTY<R>;
+  // two blocks of half the rows where they fit an SM (each block reserves
+  // 1 KB beside its own shared memory)
+  if (R > kWidePairMaxR &&
+      2 * (wide_smem_bytes<R>(C, ty / 2) + 1024) <=
+          static_cast<size_t>(sm_smem)) {
+    ty /= 2;
+  }
   const int cols = (a.W + kWideTX - 1) / kWideTX;
-  const int ty = cols * ((a.H + kWideTY - 1) / kWideTY) < n_sm
-                     ? kWideSmallTY : kWideTY;
-  const size_t smem = wide_smem_bytes(C, R, ty);
+  if (ty > 1 && cols * ((a.H + ty - 1) / ty) < n_sm) ty /= 2;
+  const size_t smem = wide_smem_bytes<R>(C, ty);
   cudaError_t e = cudaFuncSetAttribute(
       crf_wide_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
-  if (e == cudaSuccess) {  // the most shared memory: two blocks an SM fit
+  if (e == cudaSuccess) {  // the most shared memory: as many blocks as fit
     e = cudaFuncSetAttribute(crf_wide_kernel<R>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
@@ -1183,8 +1318,8 @@ extern "C" int crf_iteration_is_tiled(int C, int G, int r) {
 
 extern "C" int crf_iteration_max_classes() { return kMaxC; }
 
-// 1 if C > kGenericC classes at radius r run on crf_wide_kernel, 0 if on
-// the simple wide kernel (no room for the weights and logits).
+// 1 if C > kGenericC classes at radius r run on crf_wide_kernel (every
+// such size), 0 if not.
 extern "C" int crf_iteration_wide_fits(int C, int r) {
   return C > kGenericC && wide_fits(r) ? 1 : 0;
 }
@@ -1201,7 +1336,8 @@ extern "C" int crf_iteration_is_narrow(int C, int G, int r) {
 // report it), or cudaErrorInvalidValue for sizes outside the bounds above.
 // A size with a tiled instantiation runs on it; every other size runs on
 // crf_wide_kernel where wide_fits (more than kGenericC classes) or
-// narrow_fits (the narrow sizes) says so, else on the simple forms.
+// narrow_fits (the narrow sizes) says so, else (r = 0 within kGenericC
+// classes) on the generic kernel.
 // generic != 0 takes the simple form whatever the sizes (the generic
 // kernel, or the simple wide kernel above kGenericC classes), to time one
 // against the other.
@@ -1229,7 +1365,10 @@ extern "C" int crf_iteration_f32(const float* q, const float* g,
       case 3: return launch_wide<3>(a, C, G);
       case 4: return launch_wide<4>(a, C, G);
       case 5: return launch_wide<5>(a, C, G);
-      default: break;  // the simple forms
+      case 6: return launch_wide<6>(a, C, G);
+      case 7: return launch_wide<7>(a, C, G);
+      case 8: return launch_wide<8>(a, C, G);
+      default: break;  // r = 0 within kGenericC classes
     }
   }
   return C > kGenericC ? launch_wide_simple(a, C, G, r)

@@ -4,16 +4,21 @@ Port of the TPU kernel ``pylc_tpu/ops/pallas/crf_kernel.py::crf_iteration``.
 The kernel is ``pylc_tpu_torch/csrc/crf_iteration.cu`` (its header says
 what bounds it and what its design does about that): a register-tiled
 kernel with compile-time sizes for the (C, G, r) of ``TILED_SIZES``, the
-sizes the package uses; for every other size at a radius up to
-``WIDE_MAX_RADIUS`` the wide kernel, which makes each pixel's weights once
-and keeps the tile's logits on chip while it walks the classes in chunks
-(the narrow sizes, at most ``GENERIC_CLASSES`` classes at r >= 1,
-``narrow_fits``; 17 to ``MAX_CLASSES`` classes, ``wide_fits``); past that
-radius a generic one-thread-per-pixel kernel up to ``GENERIC_CLASSES``
-classes (and at r = 0) and a simple wide kernel above.  ``variant`` says which one a size gets.  The
-library is compiled by ``_build`` (nvcc, ``sm_90a``) into
-``pylc_tpu_torch/_build/`` on first use, from the checkout's own source,
-and called through ``ctypes`` on PyTorch's current stream.
+sizes the package uses; for every other size at 1 <= r <=
+``WIDE_MAX_RADIUS`` (every radius the kernel takes) the wide kernel, which
+makes each pixel's weights once and keeps the tile's logits on chip while
+it walks the classes in chunks (the narrow sizes, at most
+``GENERIC_CLASSES`` classes, ``narrow_fits``; 17 to ``MAX_CLASSES``
+classes, ``wide_fits``, and there at r = 0 too).  Up to r = 5 a thread of
+it holds a pair of window rows' coefficients on an 8-row tile; at r = 6 to
+8 one window row on a 4-row tile, and the parts' sums meet through every
+thread of the block.  A generic one-thread-per-pixel kernel takes r = 0 up
+to ``GENERIC_CLASSES`` classes.  ``variant`` says which one a size gets.
+The generic kernel, and the simple wide kernel above ``GENERIC_CLASSES``,
+are every size's yardstick (``crf_iteration_generic``).  The library is
+compiled by ``_build`` (nvcc, ``sm_90a``) into ``pylc_tpu_torch/_build/``
+on first use, from the checkout's own source, and called through
+``ctypes`` on PyTorch's current stream.
 
 The iteration is the custom operator ``torch.ops.pylc.crf_iteration``
 (``torch.library``), so that ``torch.export`` records it as one call in a
@@ -51,9 +56,8 @@ GENERIC_CLASSES = 16
 # both schemas' class counts, an RGB or a grayscale guide, the default radius
 TILED_SIZES = frozenset({(9, 3, 3), (11, 3, 3), (9, 1, 3), (11, 1, 3)})
 # the largest radius the wide kernel is built for (kWideMaxR in the
-# source); a larger one runs on the simple forms, the generic kernel and the
-# simple wide kernel
-WIDE_MAX_RADIUS = 5
+# source): every radius the kernel takes
+WIDE_MAX_RADIUS = 8
 
 
 def wide_fits(C: int, r: int) -> bool:

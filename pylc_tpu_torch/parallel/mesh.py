@@ -18,8 +18,10 @@ parallelism, and the port keeps both in PyTorch's own idiom:
 
 from __future__ import annotations
 
+import multiprocessing.connection
 import os
-import socket
+import pickle
+import signal
 import tempfile
 import time
 import warnings
@@ -36,6 +38,9 @@ DATA_AXIS = "data"
 JOIN_TIMEOUT_S: Optional[float] = None
 #: seconds ``init_process_group`` and every collective may take
 PG_TIMEOUT_S = 1800.0
+#: seconds ``spawn`` lets the other ranks end by themselves once one has
+#: failed, before it ends them
+FAIL_GRACE_S = 10.0
 
 #: the environment ``torchrun`` sets for each rank
 TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
@@ -201,15 +206,20 @@ def init_distributed(coordinator: Optional[str] = None,
     return world > 1
 
 
-def free_port() -> int:
-    """A TCP port on localhost that nothing listens on now."""
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+class RanksFailed(RuntimeError):
+    """Ranks of :func:`spawn` failed.  ``errors`` maps each failed rank to
+    its own error (its traceback, or how it exited); the message holds
+    them all, rank by rank."""
+
+    def __init__(self, what: str, errors: Dict[int, str]):
+        self.errors = dict(sorted(errors.items()))
+        super().__init__(
+            f"{len(self.errors)} of the ranks of {what} failed:\n" +
+            "\n".join(f"-- rank {r}:\n{e}" for r, e in self.errors.items()))
 
 
 def _rank_main(r: int, fn: Callable, args: tuple, kwargs: Dict[str, Any],
-               nprocs: int, port: int, backend: str,
+               nprocs: int, init_file: str, backend: str,
                devices: Sequence[torch.device], result: str,
                pg_timeout_s: float) -> None:
     """One rank of :func:`spawn`: join the group, run ``fn``, keep rank
@@ -217,7 +227,7 @@ def _rank_main(r: int, fn: Callable, args: tuple, kwargs: Dict[str, Any],
     torch.set_num_threads(1)
     if devices[r].type == "cuda":
         torch.cuda.set_device(devices[r])
-    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+    dist.init_process_group(backend, init_method=f"file://{init_file}",
                             rank=r, world_size=nprocs,
                             timeout=timedelta(seconds=pg_timeout_s))
     try:
@@ -228,13 +238,29 @@ def _rank_main(r: int, fn: Callable, args: tuple, kwargs: Dict[str, Any],
         dist.destroy_process_group()
 
 
+def _rank_error(process, error_file: str) -> str:
+    """A finished rank's own error: the traceback it left, or how it
+    exited."""
+    if os.path.exists(error_file):
+        with open(error_file, "rb") as f:
+            return pickle.load(f)
+    code = process.exitcode
+    if code is not None and code < 0:
+        try:
+            return f"terminated by signal {signal.Signals(-code).name}"
+        except ValueError:
+            return f"terminated by signal {-code}"
+    return f"exited with code {code}"
+
+
 def spawn(fn: Callable, nprocs: int, args: tuple = (),
           kwargs: Optional[Dict[str, Any]] = None, *,
           devices: Optional[Sequence] = None, backend: Optional[str] = None,
           timeout_s: Optional[float] = None) -> Any:
     """Run ``fn(*args, **kwargs)`` in ``nprocs`` new processes (start
-    method spawn), each a rank of a process group of their own on a free
-    localhost port; returns rank 0's return value.
+    method spawn), each a rank of a process group of their own that meets
+    through a file in a temporary directory of this call (no port is
+    chosen ahead of time); returns rank 0's return value.
 
     ``fn`` must be importable by module and name.  ``devices[r]`` is rank
     r's device, made current there (default ``nprocs`` entries of the
@@ -243,8 +269,12 @@ def spawn(fn: Callable, nprocs: int, args: tuple = (),
     tensors for all-reduce and broadcast, so two ranks may share a card
     under it.  Each rank runs with one CPU thread.  ``timeout_s`` (default
     ``JOIN_TIMEOUT_S``) bounds the wait for the ranks and, with
-    ``PG_TIMEOUT_S``, the group's set-up and collectives; a rank that
-    fails, or the time running out, ends every rank and raises."""
+    ``PG_TIMEOUT_S``, the group's set-up and collectives; the time running
+    out ends every rank and raises ``TimeoutError``.  When a rank fails,
+    the others get ``FAIL_GRACE_S`` to end by themselves (a rank whose
+    peer died fails soon after it), then every rank still running is
+    ended, and :class:`RanksFailed` carries each failed rank's own
+    error."""
     devices = [torch.device(d) for d in
                (devices or [torch.device("cpu")] * nprocs)]
     if len(devices) != nprocs:
@@ -264,23 +294,48 @@ def spawn(fn: Callable, nprocs: int, args: tuple = (),
         result = os.path.join(tmp, "rank0.pt")
         ctx = mp.start_processes(
             _rank_main, nprocs=nprocs, join=False, start_method="spawn",
-            args=(fn, tuple(args), dict(kwargs or {}), nprocs, free_port(),
-                  backend, devices, result, pg_timeout))
+            args=(fn, tuple(args), dict(kwargs or {}), nprocs,
+                  os.path.join(tmp, "rendezvous"), backend, devices,
+                  result, pg_timeout))
+        procs = ctx.processes
         deadline = None if timeout_s is None else \
             time.monotonic() + timeout_s
+
+        def wait(until: Optional[float]) -> None:
+            """Until every rank has ended, one has failed, or ``until``."""
+            while any(p.is_alive() for p in procs) and not any(
+                    p.exitcode not in (None, 0) for p in procs):
+                left = None if until is None else until - time.monotonic()
+                if left is not None and left <= 0:
+                    return
+                multiprocessing.connection.wait(
+                    [p.sentinel for p in procs if p.is_alive()], left)
+
         try:
-            while not ctx.join(timeout=None if deadline is None else 1.0):
-                if deadline is not None and time.monotonic() > deadline:
-                    raise TimeoutError(
-                        f"{nprocs} ranks of {fn.__qualname__} did not finish "
-                        f"within {timeout_s} s")
+            wait(deadline)
+            if any(p.exitcode not in (None, 0) for p in procs):
+                grace = time.monotonic() + FAIL_GRACE_S
+                for p in procs:
+                    p.join(max(0.0, grace - time.monotonic()))
+                errors = {r: _rank_error(p, ctx.error_files[r])
+                          for r, p in enumerate(procs)
+                          if p.exitcode not in (None, 0)}
+                raise RanksFailed(f"{fn.__qualname__} ({nprocs} ranks)",
+                                  errors)
+            if any(p.is_alive() for p in procs):
+                raise TimeoutError(
+                    f"{nprocs} ranks of {fn.__qualname__} did not finish "
+                    f"within {timeout_s} s")
         finally:
-            for p in ctx.processes:
+            for p in procs:
                 if p.is_alive():
                     p.terminate()
-            for p in ctx.processes:
+            for p in procs:
                 p.join(10)
                 if p.is_alive():
                     p.kill()
                     p.join()
+            for f in ctx.error_files:  # torch's, in the temporary directory
+                if os.path.exists(f):
+                    os.remove(f)
         return torch.load(result, weights_only=False)

@@ -15,9 +15,13 @@ the wide kernels of a schema past 16 classes: K1 at C=20 on the same grid
 and at C=128 on 512x512, K2a and K2b at [8, 20, 512, 512] and
 [8, 128, 512, 512], channels_last; and K1 at narrow sizes on the same grid
 (``k1_c<C>g<G>r<r>``: C=9, G=3 at r = 2, 4, 5; C=11, G=1 at r=5; C=16
-and C=6, G=3 at r=3).  It prints one JSON line.  With ``--against DIR``
-(another checkout of this repository, say the parent commit unpacked by ``git
-archive``) it times DIR, this, this, DIR, ``--rounds`` times over, each in
+and C=6, G=3 at r=3); and from a host loop and graphs both, K1 at
+r = 6 to 8 (``k1_c<C>g<G>r<r>``: C=9, G=3 at r = 6, 7, 8; C=11, G=1 and
+C=20, G=3 at r=8; C=20, G=3 at r=6) on the same grid and at C=128, G=3,
+r=8 on 512x512 (``k1_wide128r8``).  It prints one JSON line.  With
+``--against DIR`` (another checkout of this repository, say the parent
+commit unpacked by ``git archive``) it times DIR, this, this, DIR,
+``--rounds`` times over, each in
 a process of its own on the same card, and prints every line and the
 medians.  Each process builds its checkout's kernels first (nvcc, a few
 seconds).  Only the wrappers' public signatures are used, which the two
@@ -107,6 +111,10 @@ k1("k1_wide128", 128, 512, 512, False)
 for C, G, r in ((9, 3, 2), (9, 3, 4), (9, 3, 5), (11, 1, 5), (16, 3, 3),
                 (6, 3, 3)):
     k1(f"k1_c{C}g{G}r{r}", C, 1024, 1792, False, G, r)
+for C, G, r in ((9, 3, 6), (9, 3, 7), (9, 3, 8), (11, 1, 8), (20, 3, 6),
+                (20, 3, 8)):
+    k1(f"k1_c{C}g{G}r{r}", C, 1024, 1792, True, G, r)
+k1("k1_wide128r8", 128, 512, 512, True, 3, 8)
 k2("_wide20", 20, False)
 k2("_wide128", 128, False)
 out = {"card": subprocess.run(

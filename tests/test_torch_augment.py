@@ -321,7 +321,7 @@ def test_augmentor_runs_on_the_card_unless_asked():
 # --------------------------------------------------------------------- #
 
 def run_port_cli(argv, cwd):
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-m", "pylc_tpu_torch", *argv,
                           "--device", "cpu"], cwd=str(cwd), env=env,
                          capture_output=True, text=True, timeout=300)

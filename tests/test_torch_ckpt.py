@@ -157,7 +157,8 @@ def test_ckpt_bridge_names_missing_msgpack(tmp_path):
     path = tmp_path / "m.ckpt"
     path.write_bytes(b"\x80")
     out = subprocess.run([sys.executable, "-c", code, str(path)], cwd=REPO,
-                         env=dict(os.environ, PYTHONPATH=REPO),
+                         env=dict(os.environ, PYTHONPATH=REPO,
+                                  OMP_NUM_THREADS="1"),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"

@@ -66,13 +66,16 @@ def test_reference_iteration_matches_pallas_at_tiled_sizes(C, G, H, W, r):
 @pytest.mark.parametrize("C,G,H,W,r", [(17, 3, 19, 26, 3),
                                        (20, 3, 37, 30, 2),
                                        (20, 1, 21, 24, 8),
+                                       (16, 4, 19, 22, 8),
+                                       (128, 4, 13, 15, 6),
                                        (128, 3, 11, 13, 3)])
 def test_reference_iteration_matches_pallas_at_wide_sizes(C, G, H, W, r):
-    """More classes than the card's generic kernel holds: the sizes that
-    run on its wide kernels, through the plain version, against the Pallas
-    kernel (which takes any C)."""
-    assert K.variant(C, G, r) == {3: "wide<R=3>", 2: "wide<R=2>",
-                                  8: "wide-simple"}[r]
+    """More classes than the card's generic kernel holds, and the largest
+    narrow size at the largest radius: sizes that run on its wide kernel
+    (at r = 6 to 8 with one window row a thread), through the plain
+    version, against the Pallas kernel (which takes any C)."""
+    assert K.variant(C, G, r) == (f"wide<R={r}>" if C > 16
+                                  else f"narrow<R={r}>")
     rng = np.random.default_rng(C + r)
     q = rng.random((C, H, W)).astype(np.float32)
     q /= q.sum(0, keepdims=True)
@@ -194,25 +197,25 @@ def test_kernel_source_and_build_flags():
     ((9, 1, 3), "tiled<C=9,G=1,R=3>"), ((11, 1, 3), "tiled<C=11,G=1,R=3>"),
     ((11, 3, 2), "narrow<R=2>"), ((9, 3, 4), "narrow<R=4>"),
     ((7, 3, 3), "narrow<R=3>"), ((9, 2, 3), "narrow<R=3>"),
-    ((16, 4, 8), "generic"),
+    ((16, 4, 8), "narrow<R=8>"),
     pytest.param((17, 3, 3), "wide<R=3>", id="size9-wide"),
     pytest.param((20, 1, 3), "wide<R=3>", id="size10-wide"),
-    pytest.param((128, 4, 8), "wide-simple", id="size11-wide"),
+    pytest.param((128, 4, 8), "wide<R=8>", id="size11-wide"),
     ((1, 1, 0), "generic"), ((16, 4, 5), "narrow<R=5>"),
-    ((9, 3, 6), "generic"), ((11, 1, 7), "generic")])
+    ((9, 3, 6), "narrow<R=6>"), ((11, 1, 7), "narrow<R=7>")])
 def test_variant_choice(size, name):
     """Which kernel a size runs on: the tiled one for the sizes the
     package uses (both schemas, RGB or grayscale guide, default radius);
-    up to their largest radius the wide kernel for every other size (of
-    at most 16 classes, ``narrow``, from r = 1); past it, and for at most
-    16 classes at r = 0, the generic and the simple wide kernel."""
+    the wide kernel for every other size at every radius (of at most 16
+    classes, ``narrow``, from r = 1); the generic kernel for at most 16
+    classes at r = 0.  The simple wide kernel is no size's."""
     assert K.variant(*size) == name
 
 
 # sizes at the edges of the wide kernel's dispatch: class counts that leave
 # a chunk of kWideK = 4 classes with 1, 3 or no zero planes, each guide
-# width, each radius it is built for (an even and an odd number of window
-# rows per pair of them) and the first radius it is not
+# width, each radius (an even and an odd number of window rows per pair of
+# them up to r = 5, one row a thread past it)
 WIDE_BOUNDARIES = [            # (C, G, H, W, r, kernel)
     (17, 3, 9, 13, 3, "wide<R=3>"),
     (31, 4, 10, 14, 3, "wide<R=3>"),
@@ -223,13 +226,13 @@ WIDE_BOUNDARIES = [            # (C, G, H, W, r, kernel)
     (104, 3, 6, 9, 4, "wide<R=4>"),
     (105, 4, 8, 12, 5, "wide<R=5>"),
     (128, 4, 6, 7, 5, "wide<R=5>"),
-    (17, 1, 12, 9, 6, "wide-simple"),
-    (20, 4, 13, 11, 8, "wide-simple"),
+    (17, 1, 12, 9, 6, "wide<R=6>"),
+    (45, 2, 9, 10, 7, "wide<R=7>"),
+    (20, 4, 13, 11, 8, "wide<R=8>"),
 ]
 # at most 16 classes outside the tiled list: the wide kernel at each
-# radius from 1 to its largest (1 to 16 classes, a chunk of kWideK = 4
-# classes with 3, 2 or no zero planes, each guide width) and the generic
-# kernel at r = 0 and past them
+# radius from 1 to 8 (1 to 16 classes, a chunk of kWideK = 4 classes with
+# 3, 2 or no zero planes, each guide width) and the generic kernel at r = 0
 NARROW_SIZES = [               # (C, G, H, W, r, kernel)
     (1, 1, 7, 9, 0, "generic"),
     (10, 3, 9, 7, 0, "generic"),
@@ -240,8 +243,10 @@ NARROW_SIZES = [               # (C, G, H, W, r, kernel)
     (1, 4, 8, 11, 4, "narrow<R=4>"),
     (16, 3, 9, 14, 5, "narrow<R=5>"),
     (6, 1, 13, 10, 5, "narrow<R=5>"),
-    (2, 1, 7, 13, 8, "generic"),
-    (16, 4, 12, 9, 8, "generic"),
+    (5, 2, 10, 9, 6, "narrow<R=6>"),
+    (13, 3, 8, 12, 7, "narrow<R=7>"),
+    (2, 1, 7, 13, 8, "narrow<R=8>"),
+    (16, 4, 12, 9, 8, "narrow<R=8>"),
 ]
 
 
@@ -265,21 +270,25 @@ def test_reference_iteration_matches_pallas_at_wide_boundaries(C, G, H, W, r,
 
 
 def test_wide_dispatch_is_the_sources():
-    """The wide kernel's largest radius is the source's, and the dispatch
-    gives it every class count past the generic kernel's up to it."""
+    """The wide kernel's largest radius is the source's and the kernel's
+    largest, and the dispatch gives it every class count past the generic
+    kernel's at every radius from 0 to 8."""
     with open(K.SOURCE) as f:
         src = f.read()
     assert f"constexpr int kWideMaxR = {K.WIDE_MAX_RADIUS};" in src
+    assert K.WIDE_MAX_RADIUS == K.MAX_RADIUS == 8
     for r in range(K.MAX_RADIUS + 1):
         assert [K.wide_fits(C, r) for C in range(1, K.MAX_CLASSES + 1)] == \
-            [K.GENERIC_CLASSES < C and r <= K.WIDE_MAX_RADIUS
-             for C in range(1, K.MAX_CLASSES + 1)]
+            [K.GENERIC_CLASSES < C for C in range(1, K.MAX_CLASSES + 1)]
+        for G in range(1, K.MAX_GUIDE + 1):
+            assert {K.variant(C, G, r) for C in range(
+                K.GENERIC_CLASSES + 1, K.MAX_CLASSES + 1)} == {f"wide<R={r}>"}
 
 
 def test_narrow_dispatch_is_the_sources():
     """Every size of at most 16 classes outside the tiled list runs on the
-    wide kernel from r = 1 up to its largest radius (``narrow<R=r>``), on
-    the generic kernel at r = 0 and past it: the source's dispatch
+    wide kernel at every radius from r = 1 to 8 (``narrow<R=r>``), on the
+    generic kernel at r = 0: the source's dispatch
     (crf_iteration_f32 and
     crf_iteration_is_narrow, the latter checked against ``narrow_fits`` on
     the card at every load) and ``variant`` agree."""
@@ -297,7 +306,7 @@ def test_narrow_dispatch_is_the_sources():
     radius = entry.index("switch ((C > kGenericC ? wide_fits(r) : "
                          "narrow_fits(r)) ? r : -1) {")
     assert tiled < radius  # a tiled size never reaches the wide kernel
-    for r in range(K.WIDE_MAX_RADIUS + 1):
+    for r in range(9):  # every radius the kernel takes
         assert f"case {r}: return launch_wide<{r}>(a, C, G);" in entry
     assert ("return C > kGenericC ? launch_wide_simple(a, C, G, r)\n"
             "                       : launch_generic(a, C, G, r);") in entry
@@ -305,8 +314,7 @@ def test_narrow_dispatch_is_the_sources():
         for G in range(1, K.MAX_GUIDE + 1):
             for r in range(K.MAX_RADIUS + 1):
                 want = ("tiled" if (C, G, r) in K.TILED_SIZES else
-                        f"narrow<R={r}>" if 1 <= r <= K.WIDE_MAX_RADIUS
-                        else "generic")
+                        f"narrow<R={r}>" if 1 <= r <= 8 else "generic")
                 assert K.variant(C, G, r).split("<C=")[0] == want
                 assert K.narrow_fits(C, G, r) == want.startswith("narrow")
 

@@ -387,7 +387,7 @@ def test_extract_refuses_mismatched_mask(photos, tmp_path):
 # --------------------------------------------------------------------- #
 
 def run_port_cli(argv, cwd):
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-m", "pylc_tpu_torch", *argv,
                           "--device", "cpu"], cwd=str(cwd), env=env,
                          capture_output=True, text=True, timeout=300)

@@ -21,15 +21,18 @@ being 5e-3."""
 
 import json
 import os
+import socket
 import subprocess
 import sys
 import time
+from datetime import timedelta
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from pylc_tpu.config import Config as JaxConfig
 from pylc_tpu.parallel.mesh import batch_sharding as jax_batch_sharding
@@ -66,13 +69,21 @@ def _bounded_spawn(monkeypatch):
 def run_ranks(code: str, n: int, workdir, env=None):
     """Run ``code`` as n ranks with torchrun's environment; argv[1] is
     ``workdir``.  Fails the test, ending every rank, on a timeout or a
-    rank's error."""
-    port = pmesh.free_port()
+    rank's error.
+
+    As torchrun's agent does, this process hosts the group's store, on a
+    port it binds before any rank learns the number, and tells the ranks
+    so (``TORCHELASTIC_USE_AGENT_STORE``): no other job can take the port
+    between its choice and rank 0's start."""
+    store = dist.TCPStore("127.0.0.1", 0, is_master=True,
+                          wait_for_workers=False,
+                          timeout=timedelta(seconds=TIMEOUT_S))
     procs = []
     for r in range(n):
         e = dict(os.environ, PYTHONPATH=REPO, RANK=str(r),
                  WORLD_SIZE=str(n), LOCAL_RANK=str(r),
-                 MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                 MASTER_ADDR="127.0.0.1", MASTER_PORT=str(store.port),
+                 TORCHELASTIC_USE_AGENT_STORE="True",
                  OMP_NUM_THREADS="1", **(env or {}))
         procs.append(subprocess.Popen(
             [sys.executable, "-c", code, str(workdir)], env=e,
@@ -90,6 +101,7 @@ def run_ranks(code: str, n: int, workdir, env=None):
             if p.poll() is None:
                 p.kill()
                 p.wait()
+    del store
     for r, (p, (_, err)) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"rank {r}:\n{err[-3000:]}"
     return [o for o, _ in outs]
@@ -390,6 +402,50 @@ def test_spawned_ranks_shard_validation_with_padding_steps(tmp_path):
 def test_train_refuses_a_device_count_unlike_the_group():
     with pytest.raises(ValueError, match="process group of 1"):
         ttrainer.train(Config(), _db(4), 0, device="cpu")
+
+
+# --------------------------------------------------------------------- #
+# the rank launcher
+# --------------------------------------------------------------------- #
+
+def _meet():
+    """A spawned rank: the sum of rank + 1 over the group."""
+    t = torch.tensor([dist.get_rank() + 1.0])
+    dist.all_reduce(t)
+    return dist.get_world_size(), float(t)
+
+
+def _rank_1_fails():
+    """A spawned rank: rank 1 raises right after joining while rank 0
+    waits for it at a barrier."""
+    if dist.get_rank() == 1:
+        raise ValueError("rank-1-own")
+    dist.barrier()
+
+
+def test_spawned_ranks_meet_while_a_chosen_port_is_taken(monkeypatch):
+    """``spawn``'s ranks meet through a file of their own, not a port
+    chosen ahead of time: with ``free_port`` (a launcher's port picker,
+    set here whether the module has one or not) giving a port that another
+    process listens on, as another job's group may take a port between
+    its choice and rank 0's start, two gloo ranks still meet."""
+    with socket.socket() as foreign:
+        foreign.bind(("127.0.0.1", 0))
+        foreign.listen()
+        taken = foreign.getsockname()[1]
+        monkeypatch.setattr(pmesh, "free_port", lambda: taken, raising=False)
+        assert pmesh.spawn(_meet, 2, timeout_s=TIMEOUT_S) == (2, 3.0)
+
+
+def test_a_failed_spawn_carries_each_failed_ranks_own_error():
+    """Rank 1 fails right after joining and rank 0, waiting at a barrier,
+    fails on the closed connection: the exception holds rank 1's own
+    error, whichever rank ended first."""
+    with pytest.raises(pmesh.RanksFailed) as info:
+        pmesh.spawn(_rank_1_fails, 2, timeout_s=TIMEOUT_S)
+    assert "rank-1-own" in info.value.errors[1]
+    assert "rank-1-own" in str(info.value)
+    assert "-- rank 1:" in str(info.value)
 
 
 # --------------------------------------------------------------------- #

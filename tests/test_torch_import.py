@@ -71,7 +71,7 @@ def test_port_imports_without_jax():
         f"             and m.split('.')[0] in {BLOCKED + ('cv2', 'triton')!r})\n"
         "assert not bad, bad\n"
         "print('ok')\n")
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -123,7 +123,7 @@ def test_in_memory_train_runs_without_jax_flax_h5py(tmp_path):
         "assert json.load(open(os.path.join(d, 'losses.json')))['valid']\n"
         f"assert not [m for m in {BLOCKED!r} if sys.modules.get(m)]\n"
         "print('ok', s['steps'])\n")
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
                          env=env, capture_output=True, text=True,
                          timeout=300)
@@ -168,7 +168,7 @@ def test_in_memory_data_path_runs_without_jax_flax_h5py(tmp_path):
         "s = train(cfg, data, None, False, device='cpu')\n"
         f"assert not [m for m in {BLOCKED!r} if sys.modules.get(m)]\n"
         "print('ok', s['steps'] > 0)\n")
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
                          env=env, capture_output=True, text=True,
                          timeout=300)

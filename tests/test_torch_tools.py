@@ -292,7 +292,7 @@ def test_presenter_runs_on_the_card_unless_asked(tiny_model, tiny_image):
 def test_gui_module_entry_point():
     """``python -m pylc_tpu_torch.gui`` parses its flags (the window
     itself needs a display)."""
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-m", "pylc_tpu_torch.gui",
                           "--help"], env=env, capture_output=True,
                          text=True, timeout=120)

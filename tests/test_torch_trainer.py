@@ -351,7 +351,7 @@ def test_tester_takes_verbose_and_n_devices(trained, tmp_path, capsys):
 
 
 def test_train_cli_runs_on_the_cpu(tmp_path, h5_db):
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     out = subprocess.run(
         [sys.executable, "-m", "pylc_tpu_torch", "train", "--db", h5_db,
          "--batch_size", "2", "--n_epochs", "1", "--report", "2",
