@@ -33,10 +33,14 @@ Phases, in order; any failed check raises, and the script exits non-zero:
            slice's [8, 9, 512, 512] channels_last logits (weighted and
            not), at a ragged channels_last [3, 9, 61, 53], a ragged
            contiguous [1, 11, 37, 29] and a ragged channels_last
-           [2, 6, 45, 37] (a run-time class count), these with targets
-           outside [0, C); at schema_b's [8, 11, 512, 512] and a ragged
-           [3, 11, 61, 53], both channels_last, and at the U-Net's
-           [8, 9, 324, 324] channels_last; on the wide kernels (17 to 128
+           [2, 6, 45, 37], these with targets outside [0, C); at
+           schema_b's [8, 11, 512, 512] and a ragged [3, 11, 61, 53],
+           both channels_last, and at the U-Net's [8, 9, 324, 324]
+           channels_last; at every other class count up to 16 (a user's
+           own schema, each class count on kernels of its own) on a
+           ragged shape, channels_last (and at 12 classes contiguous too),
+           targets outside [0, C), and at [8, C, 512, 512] channels_last
+           for C = 6, 8, 12 and 16; on the wide kernels (17 to 128
            classes) at [2, 20, 61, 53] and [2, 128, 37, 29], channels_last
            (K2a's and K2b's wide staged kernels) and contiguous (their
            wide kernels), at [2, 33, 61, 53] channels_last, and at the
@@ -46,9 +50,9 @@ Phases, in order; any failed check raises, and the script exits non-zero:
            K2b's dlogits against the plain backward fed by the plain
            forward, and the direct kernels of K2a and K2b held to the same
            limits; per shape the kernels that ran, the times (each in
-           turns with its direct kernel) and the bounds.  Fails if a
-           compile-time instantiation (K2a's and K2b's direct kernels and
-           K2b's staged kernel, each at 9 and 11 classes) or a wide or
+           turns with its direct kernel) and the bounds.  Fails if an
+           instantiation (K2a's and K2b's direct kernels and K2b's staged
+           kernel, each at every class count from 1 to 16) or a wide or
            wide staged kernel was not launched.
   [net]    the f32 network on the card against the same network on the
            CPU.
@@ -87,6 +91,10 @@ Phases, in order; any failed check raises, and the script exits non-zero:
            map against the plain CRF; 5 train steps at 512 px, batch 8,
            K2a and K2b on their wide staged kernels once per step, the
            loss falling.
+  [schema] users' own schemas of 6 and 16 classes (generated): 5 train
+           steps each of DeepLabV3+/ResNet101 at full width, 512 px,
+           batch 8, bf16, AdamW, the fused loss on K2a ``direct<C>`` and
+           K2b ``staged<C>`` once per step, the loss finite and falling.
   [train]  the training path: ``trainer.train`` at full width (512 px,
            batch 8, bf16 autocast, AdamW with step_lr, clip 0.5, the fused
            loss on K2a/K2b) on an in-memory DB of 40 seeded tiles for 2
@@ -264,12 +272,33 @@ K2_SHAPES = [   # (B, C, H, W, channels_last, weighted, targets outside)
     # of 256 and one of 161
     (3, 9, 61, 53, True, True, True),
     (1, 11, 37, 29, False, True, True),     # ragged, contiguous NCHW
-    (2, 6, 45, 37, True, True, True),       # ragged, a run-time class count
+    (2, 6, 45, 37, True, True, True),       # ragged, a 6-class schema
     (8, 11, 512, 512, True, True, False),   # schema_b's train step
     (3, 11, 61, 53, True, True, True),      # ragged, targets 255 and 11
     # the U-Net's train step: 104,976 pixels per image, 410 chunks of 256
     # and one of 16
     (8, 9, 324, 324, True, False, False),
+    # every other class count up to 16 (a user's --schema), each on kernels
+    # of its own: ragged, channels_last (K2b staged, its direct kernel in
+    # turns), at 12 classes contiguous too, then the train steps' shapes
+    (2, 1, 45, 37, True, False, True),
+    (3, 2, 61, 53, True, False, True),
+    (1, 3, 37, 29, True, True, True),
+    (2, 4, 33, 65, True, True, True),
+    (2, 5, 45, 37, True, True, True),
+    (3, 7, 61, 53, True, True, True),
+    (2, 8, 45, 37, True, True, True),
+    (1, 10, 37, 29, True, True, True),
+    (2, 12, 45, 37, True, True, True),
+    (2, 12, 37, 29, False, True, True),
+    (1, 13, 61, 53, True, False, True),
+    (2, 14, 37, 29, True, True, True),
+    (1, 15, 45, 37, True, True, True),
+    (2, 16, 61, 53, True, True, True),
+    (8, 6, 512, 512, True, False, False),
+    (8, 8, 512, 512, True, False, False),
+    (8, 12, 512, 512, True, False, False),
+    (8, 16, 512, 512, True, False, False),
 ]
 # wider class counts than the register-held kernels take: K2a's and K2b's
 # wide kernels, channels_last and contiguous, targets outside [0, C)
@@ -282,8 +311,9 @@ K2_WIDE_SHAPES = [
     (8, 128, 512, 512, True, False, False),  # the largest class count's
     (2, 33, 61, 53, True, True, True),  # K2b's wide span of 128 pixels
 ]
-# the compile-time instantiations that [k1] and [k2] must have launched
-K2_CLASS_COUNTS = (9, 11)
+# the instantiations that [k2] must have launched: every class count up to
+# 16 has its own
+K2_CLASS_COUNTS = range(1, 17)
 K2A_MUST_RUN = {f"direct<C={C}>" for C in K2_CLASS_COUNTS} | {"wide",
                                                               "wide-staged"}
 K2B_MUST_RUN = {f"{kind}<C={C}>" for C in K2_CLASS_COUNTS
@@ -315,6 +345,7 @@ ZOO_STEPS = 5                  # train steps on one fixed batch, per model
 ZOO_PHOTO_HW = (1024, 1024)    # MobileNetV2, DRN-D-54 and ResUNet
 RADIUS_PHOTO_R = (5, 8)        # [radius]: `test --crf_radius 5` and 8
 WIDE_CLASSES = 20              # [wide]: a user's schema past 16 classes
+SCHEMA_CLASSES = (6, 16)       # [schema]: users' schemas up to 16 classes
 WIDE_PHOTO_HW = (1024, 1024)
 MULTI_BANDS = (2, 3, 4)        # [multi]: Mesh([cuda:0] * n)
 MULTI_AGREEMENT = 0.9999       # class maps, banded against one device, at
@@ -646,7 +677,9 @@ def phase_k2(device):
         want = torch.stack(losses_from_acc(acc_ref, C, w))
         got = torch.stack(losses_from_acc(acc, C, w))
         loss_err = (got - want).abs().max().item()
-        loss_rel = ((got - want).abs() / want.abs()).max().item()
+        # 0 / 0: both exactly 0 (CE at one class)
+        loss_rel = ((got - want).abs() / want.abs()).nan_to_num(0.0
+                                                                ).max().item()
         dx_err = (dx - dx_ref).abs().max().item()
         direct_err = (dx_direct - dx_ref).abs().max().item()
         dx_scale = dx_ref.abs().max().item()
@@ -751,12 +784,16 @@ def phase_k2(device):
         if missing:
             raise AssertionError(f"compile-time instantiations of {what} "
                                  f"that no shape launched: {sorted(missing)}")
-    for B, C, H, W, cl, _, _ in K2_SHAPES[-3:]:
-        got = [c["variant"] for c in checked["bwd"]
-               if c["shape"][:4] == [B, C, H, W] and "plain_ms" in c]
-        if got != [f"staged<C={C}>"]:
-            raise AssertionError(f"K2b at [{B},{C},{H},{W}] channels_last "
-                                 f"ran {got}, not staged<C={C}>")
+    for B, C, H, W, cl, _, _ in K2_SHAPES:
+        want = [f"direct<C={C}>", f"staged<C={C}>" if cl or C == 1
+                else f"direct<C={C}>"]
+        got = [{c["variant"] for c in checked[key]
+                if c["shape"] == [B, C, H, W, "channels_last" if cl
+                                  else "contiguous"] and "plain_ms" in c}
+               for key in ("fwd", "bwd")]
+        if got != [{v} for v in want]:
+            raise AssertionError(f"K2a and K2b at [{B},{C},{H},{W}] ran "
+                                 f"{got}, not {want}")
     return worst_loss, worst_dx, at_slice, checked
 
 
@@ -1081,6 +1118,28 @@ def phase_wide(device, workdir):
         f"deeplab/resnet {WIDE_CLASSES} classes", cfg, model, device,
         "[wide]", ("wide-staged", "wide-staged"))
     return launches, (k2a, k2b)
+
+
+def phase_schema(device, workdir):
+    """Users' own schemas of up to 16 classes: for each of SCHEMA_CLASSES
+    a generated schema and DeepLabV3+/ResNet101 at full width, ZOO_STEPS
+    train steps (512 px, batch 8, bf16, AdamW, the fused loss) with K2a
+    on ``direct<C>`` and K2b on ``staged<C>`` once per step.  Returns
+    {"schema<C>_train": (K2a launches, K2b launches)}."""
+    from pylc_tpu_torch.config import Config
+    from pylc_tpu_torch.train_state import init_model
+    out = {}
+    for C in SCHEMA_CLASSES:
+        cfg = Config(schema=write_schema(
+            os.path.join(workdir, f"schema{C}.json"), C))
+        if cfg.n_classes != C:
+            raise AssertionError(f"the schema has {cfg.n_classes} classes")
+        k2a, k2b, _, _, _ = zoo_train_steps(
+            f"deeplab/resnet {C} classes", cfg, init_model(cfg, seed=7 + C),
+            device, "[schema]")
+        out[f"schema{C}_train"] = (k2a, k2b)
+        torch.cuda.empty_cache()
+    return out
 
 
 def _post(url: str, data: bytes, ctype: str = "image/jpeg"):
@@ -2600,6 +2659,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(dir=build_root) as workdir:
         wide_launches, wide_train = phase_wide(device, workdir)
+        schema_train = phase_schema(device, workdir)
     with tempfile.TemporaryDirectory(dir=build_root) as workdir:
         k2a_launches, k2b_launches = phase_train(device, workdir)
     torch.cuda.empty_cache()
@@ -2632,6 +2692,7 @@ def main() -> int:
                  "data": data_launches[i],
                  "ranks_train": ranks_launches[i],
                  "wide_train": wide_train[i],
+                 **{k: v[i] for k, v in schema_train.items()},
                  **{k: v[i] for k, v in zoo.items() if k.endswith("_train")}}
                 for i, n in enumerate((k2a_launches, k2b_launches))]
     for paths in (k1_paths, *k2_paths):

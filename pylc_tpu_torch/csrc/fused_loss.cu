@@ -52,17 +52,18 @@
 // K2b also writes, and its writes reach L2 as partial sectors, so it has two
 // kernels.  The staged one copies a block's contiguous span of 256 pixels x
 // C floats into shared memory with 16-byte cp.async chunks; each thread
-// takes its pixel's C values from there (stride C words: C is odd, so the
-// 32 lanes hit 32 banks) and writes its dlogits back, and device memory
-// sees only full sectors, each once.  fused_loss_backward_variant() says
-// which tensors it takes: dense channels_last, C = 9 or 11 (both schemas;
-// compile-time, so the class loops unroll with no predicated slots),
-// 16-byte aligned.  Every other accepted layout (contiguous NCHW, where a
-// warp's accesses are coalesced as they are; an even or other class count;
-// unaligned pointers) takes K2b's direct kernel.  The direct kernels of K2a
-// and K2b have one thread per pixel at the logits' strides, the image in
-// the grid's y index, so no thread divides by H*W, and a compile-time C for
-// 9 and 11.
+// takes its pixel's C values from there (stride C words) and writes its
+// dlogits back, and device memory sees only full sectors, each once.
+// fused_loss_backward_variant() says which tensors it takes: dense
+// channels_last, 16-byte aligned.  Every other accepted layout (contiguous
+// NCHW, where a warp's accesses are coalesced as they are; unaligned
+// pointers) takes K2b's direct kernel.  The direct kernels of K2a and K2b
+// have one thread per pixel at the logits' strides, the image in the
+// grid's y index, so no thread divides by H*W.  Up to kNarrowC = 16 classes
+// every class count has its own instantiation of each of the three
+// (NarrowClasses, with_class_count), so the class loops unroll with no
+// predicated slots: a user's own --schema runs on the same forms as the
+// two packaged schemas (9 and 11 classes).
 //
 // K2a's design:
 //   - fused_loss_forward_direct_kernel<C>: a block walks kFwdSpans = 16
@@ -85,7 +86,9 @@
 //   the 75.5 MB of logits fits the 50 MB L2 is read from there): the whole
 //   forward 0.036 ms replayed from a CUDA graph (65% of the bound), 0.038
 //   ms from a loop on the host (60%); 64 registers, 1,028 B of shared
-//   memory, no spills (C = 11: 74 registers; run-time C: 106).  The form
+//   memory, no spills (C = 11: 79 registers, C = 16: 125, at the resident
+//   blocks kFwdBlocks asks for; the run-time-C form that took the other
+//   class counts before every one had its own: 106).  The form
 //   this file had before (a block per 256 pixels, run-time C, a division
 //   per thread, 52 five-shuffle reductions per block) took 0.135 ms
 //   (pylc_tpu_torch/tools/time_kernels.py, the two checkouts in turns).
@@ -109,9 +112,23 @@
 //   - fused_loss_backward_staged_kernel<C>: a block stages one span, each
 //     thread writes its dlogits back into its pixel's slots, and the block
 //     stores the span with 16-byte coalesced writes.  Blocks are not
-//     persistent: six resident blocks per SM in different phases overlap
-//     one's loads with another's arithmetic.
-//   - fused_loss_backward_direct_kernel<C>: one thread per pixel.
+//     persistent: six resident blocks per SM (four above 11 classes, where
+//     a thread needs more registers) in different phases overlap one's
+//     loads with another's arithmetic.  At an even C the lanes reading
+//     word c of their rows, C words apart, meet in shared-memory banks
+//     (8-way at C = 8).  Measured at [8, C, 512, 512] for C = 6, 8, 12, 16
+//     on an H100 80GB HBM3 at 700 W (tools/k2_variants.py, copies of this
+//     source with the choice rewritten, in turns), the word-by-word
+//     walk took 0.0412, 0.0514, 0.0723, 0.0956 ms; rows in 16- and 8-byte
+//     pieces, conflict-free, the same within 1%; the wide staged K2b's
+//     lane-skewed walk 1-7% more (0.0434, 0.0551, 0.0756, 0.0968; the
+//     rotation's index arithmetic, and a spill at 16); rows padded to
+//     C + 1 words, copied through registers, 24-37% more; five resident
+//     blocks above 11 classes spilled.  So the walk stays word by word.
+//   - fused_loss_backward_direct_kernel<C>: one thread per pixel, compiled
+//     for four resident blocks (left to itself the compiler spilled at 15
+//     classes; with the bound it is 3-22% faster at 8 to 13 classes, the
+//     same at 16 and 12% slower at 6, the same tool).
 //   Both: the per-class dice terms g_c take two values (target or not), so
 //   the first C threads compute them once per block, with a_ce per class;
 //   p = e * (1 / sum) instead of C divisions; pow(1-q, gamma) is
@@ -126,7 +143,7 @@
 //
 // Wide kernels, for 17 to 128 classes (the Pallas loss asserts C <= 128):
 // the kernels above keep a pixel's C logits and K2a's 3C + 4 sums in
-// registers, sized for at most kNarrowC = 16 classes at run time; at 128
+// registers, one instantiation per class count up to kNarrowC = 16; at 128
 // those arrays would spill.  The same rules hold for the wide kernels: the
 // 3C + 4 statistics and the final sum in a fixed order, no atomics, two
 // launches bit-equal.  K2a wide, two kernels:
@@ -181,6 +198,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
+#include <utility>
 
 namespace {
 
@@ -200,12 +219,6 @@ struct Layout {
   long long sP;  // stride of the merged (H, W) pixel index
 };
 
-// Registers a thread keeps per class: CT > 0 is a compile-time class
-// count; CT == 0 takes C <= kNarrowC at run time, with the class loops
-// unrolled to kNarrowC under a test.
-template <int CT>
-constexpr int kClassSlots = CT > 0 ? CT : kNarrowC;
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
@@ -221,20 +234,15 @@ __device__ __forceinline__ double warp_sum(double v) {
 // v[] holds a pixel's logits on entry and exp(logit - max) on return;
 // returns their sum, and the max through mx.
 template <int CT>
-__device__ __forceinline__ float softmax_exp(float (&v)[kClassSlots<CT>],
-                                             int C, float& mx) {
+__device__ __forceinline__ float softmax_exp(float (&v)[CT], float& mx) {
   mx = -INFINITY;
 #pragma unroll
-  for (int c = 0; c < kClassSlots<CT>; ++c) {
-    if (CT > 0 || c < C) mx = fmaxf(mx, v[c]);
-  }
+  for (int i = 0; i < CT; ++i) mx = fmaxf(mx, v[i]);
   float se = 0.f;
 #pragma unroll
-  for (int c = 0; c < kClassSlots<CT>; ++c) {
-    if (CT > 0 || c < C) {
-      v[c] = expf(v[c] - mx);
-      se += v[c];
-    }
+  for (int i = 0; i < CT; ++i) {
+    v[i] = expf(v[i] - mx);
+    se += v[i];
   }
   return se;
 }
@@ -248,45 +256,30 @@ struct FwdParams {
   float alpha, gamma, eps;
 };
 
-// A thread's partial sums live in slots: [c] inter, [S + c] sump,
-// [2 S + c] cnt with S = kClassSlots<CT>, then nll_sum, wsum, focal_sum,
-// count.  With a compile-time C the slots are the 3C + 4 statistics in
-// order.
+// A thread's partial sums, the 3C + 4 statistics in order: [c] inter,
+// [C + c] sump, [2 C + c] cnt, then nll_sum, wsum, focal_sum, count.
 template <int CT>
-constexpr int kFwdSlots = 3 * kClassSlots<CT> + 4;
-
-// Where slot s goes in the statistics vector; -1: a class slot beyond C.
-template <int CT>
-__device__ __forceinline__ int slot_index(int s, int C) {
-  if (CT > 0) return s;
-  const int group = s / kNarrowC, c = s % kNarrowC;
-  if (group == 3) return 3 * C + c;
-  return c < C ? group * C + c : -1;
-}
+constexpr int kFwdSlots = 3 * CT + 4;
 
 // One pixel: v[] holds its logits, y its target (-1: a target outside
 // [0, C) has no class) and xy the target's logit; its terms are added to
 // acc[].  cw_s holds the C class weights (ones when unweighted).
 template <int CT>
 __device__ __forceinline__ void forward_pixel(
-    float (&v)[kClassSlots<CT>], int C, int y, float xy,
-    const float* __restrict__ cw_s, const FwdParams& P,
-    float (&acc)[kFwdSlots<CT>]) {
-  constexpr int S = kClassSlots<CT>;
+    float (&v)[CT], int y, float xy, const float* __restrict__ cw_s,
+    const FwdParams& P, float (&acc)[kFwdSlots<CT>]) {
   float mx;
-  const float se = softmax_exp<CT>(v, C, mx);
+  const float se = softmax_exp<CT>(v, mx);
   const float inv_se = 1.f / se;
   float py = 0.f;
 #pragma unroll
-  for (int c = 0; c < S; ++c) {
-    if (CT > 0 || c < C) {
-      const float p = v[c] * inv_se;
-      acc[S + c] += p;
-      if (c == y) {
-        py = p;
-        acc[c] += p;
-        acc[2 * S + c] += 1.f;
-      }
+  for (int c = 0; c < CT; ++c) {
+    const float p = v[c] * inv_se;
+    acc[CT + c] += p;
+    if (c == y) {
+      py = p;
+      acc[c] += p;
+      acc[2 * CT + c] += 1.f;
     }
   }
   const float wy = y >= 0 ? cw_s[y] : (P.weighted ? 0.f : 1.f);
@@ -294,10 +287,10 @@ __device__ __forceinline__ void forward_pixel(
   const float q = py + P.eps;
   const float b = 1.f - q;
   const float pw = P.gamma == 2.f ? b * b : powf(b, P.gamma);
-  acc[3 * S + 0] += nll * wy;
-  acc[3 * S + 1] += wy;
-  acc[3 * S + 2] += -P.alpha * pw * logf(q);
-  acc[3 * S + 3] += 1.f;
+  acc[3 * CT + 0] += nll * wy;
+  acc[3 * CT + 1] += wy;
+  acc[3 * CT + 2] += -P.alpha * pw * logf(q);
+  acc[3 * CT + 3] += 1.f;
 }
 
 // One step of the halving butterfly over w[0 .. 2 O): the lanes whose bit O
@@ -345,20 +338,20 @@ __device__ __forceinline__ float block_sum_slots(const float (&vals)[V],
   return total;
 }
 
-// K2a, any accepted layout: one thread per pixel at the logits' strides;
-// blockIdx.y is the image, and block (bx, by) takes its pixels
-// [bx kFwdPixels, (bx + 1) kFwdPixels).
+// K2a, any accepted layout, CT classes: one thread per pixel at the
+// logits' strides; blockIdx.y is the image, and block (bx, by) takes its
+// pixels [bx kFwdPixels, (bx + 1) kFwdPixels).  The two kernels below
+// run it.
 template <int CT>
-__global__ void __launch_bounds__(kThreads)
-fused_loss_forward_direct_kernel(const float* __restrict__ x,
-                                 const uint8_t* __restrict__ t,
-                                 const float* __restrict__ cw,
-                                 float* __restrict__ partials, int C,
-                                 Layout L, FwdParams P) {
-  constexpr int S = kClassSlots<CT>;
+__device__ __forceinline__ void forward_direct(const float* __restrict__ x,
+                                               const uint8_t* __restrict__ t,
+                                               const float* __restrict__ cw,
+                                               float* __restrict__ partials,
+                                               const Layout& L,
+                                               const FwdParams& P) {
   __shared__ float rows[kWarps][kFwdSlots<CT>];
-  __shared__ float cw_s[S];
-  if (threadIdx.x < C) cw_s[threadIdx.x] = P.weighted ? cw[threadIdx.x] : 1.f;
+  __shared__ float cw_s[CT];
+  if (threadIdx.x < CT) cw_s[threadIdx.x] = P.weighted ? cw[threadIdx.x] : 1.f;
   __syncthreads();
 
   float acc[kFwdSlots<CT>];
@@ -373,21 +366,19 @@ fused_loss_forward_direct_kernel(const float* __restrict__ x,
     if (hw < L.HW) {
       const long long base = b * L.sB + hw * L.sP;
       const int target = t[b * L.HW + hw];
-      float v[S];
+      float v[CT];
 #pragma unroll
-      for (int c = 0; c < S; ++c) {
-        if (CT > 0 || c < C) v[c] = x[base + c * L.sC];
-      }
+      for (int c = 0; c < CT; ++c) v[c] = x[base + c * L.sC];
       int y = -1;
       float xy = 0.f;
 #pragma unroll
-      for (int c = 0; c < S; ++c) {
-        if ((CT > 0 || c < C) && c == target) {
+      for (int c = 0; c < CT; ++c) {
+        if (c == target) {
           y = c;
           xy = v[c];
         }
       }
-      forward_pixel<CT>(v, C, y, xy, cw_s, P, acc);
+      forward_pixel<CT>(v, y, xy, cw_s, P, acc);
     }
   }
   // the block's row of partials[3C + 4][n_rows]
@@ -395,9 +386,41 @@ fused_loss_forward_direct_kernel(const float* __restrict__ x,
   const int n_rows = gridDim.x * gridDim.y;
   const float total = block_sum_slots<kFwdSlots<CT>>(acc, rows);
   if (threadIdx.x < kFwdSlots<CT>) {
-    const int v = slot_index<CT>(threadIdx.x, C);
-    if (v >= 0) partials[static_cast<long long>(v) * n_rows + row] = total;
+    partials[static_cast<long long>(threadIdx.x) * n_rows + row] = total;
   }
+}
+
+// Resident blocks K2a's direct kernel is compiled for from 10 classes on:
+// as many as the registers of a thread's 3C + 4 sums and C logits leave
+// room for (80 and 128 registers a thread).  Left to itself the compiler
+// spills 8 B at 10 and 13 classes.  Measured against it
+// (tools/k2_variants.py, in turns, H100 80GB HBM3 at 700 W): 2-8% faster
+// at 11 to 13 classes and 15% slower at 10, where it chose 64 registers
+// and the spill over 80 and three blocks.  Up to 9 classes, where it
+// spills nothing, asking for four blocks cost 1-3% at 9 classes: there
+// the compiler keeps its own choice (0).
+template <int CT>
+constexpr int kFwdBlocks = CT <= 9 ? 0 : CT <= 12 ? 3 : 2;
+
+// K2a's direct kernel up to 9 classes, and from 10 on
+template <int CT>
+__global__ void __launch_bounds__(kThreads)
+fused_loss_forward_direct_kernel(const float* __restrict__ x,
+                                 const uint8_t* __restrict__ t,
+                                 const float* __restrict__ cw,
+                                 float* __restrict__ partials, Layout L,
+                                 FwdParams P) {
+  forward_direct<CT>(x, t, cw, partials, L, P);
+}
+
+template <int CT>
+__global__ void __launch_bounds__(kThreads, kFwdBlocks<CT>)
+fused_loss_forward_direct_blocks_kernel(const float* __restrict__ x,
+                                        const uint8_t* __restrict__ t,
+                                        const float* __restrict__ cw,
+                                        float* __restrict__ partials,
+                                        Layout L, FwdParams P) {
+  forward_direct<CT>(x, t, cw, partials, L, P);
 }
 
 // K2a's second kernel: one block sums the rows of partials[V][n_rows] in
@@ -484,23 +507,20 @@ __device__ __forceinline__ void load_stats(Stats& s,
 
 // One pixel: v[] holds its logits on entry and its dlogits on return.
 template <int CT>
-__device__ __forceinline__ void backward_pixel(
-    float (&v)[kClassSlots<CT>], int C, int target, const BwdStats& s,
-    const BwdParams& P) {
-  constexpr int kN = kClassSlots<CT>;
+__device__ __forceinline__ void backward_pixel(float (&v)[CT], int target,
+                                               const BwdStats& s,
+                                               const BwdParams& P) {
   float mx;
-  const float se = softmax_exp<CT>(v, C, mx);
+  const float se = softmax_exp<CT>(v, mx);
   const float inv_se = 1.f / se;
-  int y = C;  // C: a target outside [0, C) has no class
+  int y = CT;  // CT: a target outside [0, C) has no class
   float py = 0.f;
 #pragma unroll
-  for (int c = 0; c < kN; ++c) {
-    if (CT > 0 || c < C) {
-      v[c] *= inv_se;
-      if (c == target) {
-        y = c;
-        py = v[c];
-      }
+  for (int c = 0; c < CT; ++c) {
+    v[c] *= inv_se;
+    if (c == target) {
+      y = c;
+      py = v[c];
     }
   }
   const float a_ce = s.a_ce[y];
@@ -514,27 +534,32 @@ __device__ __forceinline__ void backward_pixel(
 
   float gp = 0.f;
 #pragma unroll
-  for (int c = 0; c < kN; ++c) {
-    if (CT > 0 || c < C) {
-      gp += (c == y ? s.g_target[c] : s.g_other[c]) * v[c];
-    }
+  for (int c = 0; c < CT; ++c) {
+    gp += (c == y ? s.g_target[c] : s.g_other[c]) * v[c];
   }
 #pragma unroll
-  for (int c = 0; c < kN; ++c) {
-    if (CT > 0 || c < C) {
-      const float oh = (c == y) ? 1.f : 0.f;
-      const float g = c == y ? s.g_target[c] : s.g_other[c];
-      const float d = P.w_ce * (a_ce * (v[c] - oh)) +
-                      P.w_focal * (a_focal * (oh - v[c])) +
-                      P.w_dice * (v[c] * (g - gp));
-      v[c] = d * s.ct;
-    }
+  for (int c = 0; c < CT; ++c) {
+    const float oh = (c == y) ? 1.f : 0.f;
+    const float g = c == y ? s.g_target[c] : s.g_other[c];
+    const float d = P.w_ce * (a_ce * (v[c] - oh)) +
+                    P.w_focal * (a_focal * (oh - v[c])) +
+                    P.w_dice * (v[c] * (g - gp));
+    v[c] = d * s.ct;
   }
 }
 
-// K2b, dense channels_last: x and dx are flat [N][CT], 16-byte aligned.
+// Resident blocks the staged K2b asks of the compiler: six (at most 40
+// registers a thread) up to 11 classes, four (64) above, where a pixel's
+// logits alone take up to 16 registers.
 template <int CT>
-__global__ void __launch_bounds__(kThreads, 6)
+constexpr int kStagedBlocks = CT <= 11 ? 6 : 4;
+
+// K2b, dense channels_last, CT classes: x and dx are flat [N][CT],
+// 16-byte aligned.  Each thread walks its pixel's row of the span word by
+// word; at an even CT the lanes meet in banks, which costs less than the
+// ways round them (K2b's design, above).
+template <int CT>
+__global__ void __launch_bounds__(kThreads, kStagedBlocks<CT>)
 fused_loss_backward_staged_kernel(const float* __restrict__ x,
                                   const uint8_t* __restrict__ t,
                                   const float* __restrict__ cw,
@@ -542,8 +567,6 @@ fused_loss_backward_staged_kernel(const float* __restrict__ x,
                                   const float* __restrict__ cotangent,
                                   float* __restrict__ dx, long long N,
                                   BwdParams P) {
-  static_assert(CT % 2 == 1, "an even stride would hit shared-memory banks "
-                             "twice");
   __shared__ __align__(16) float span[kThreads * CT];
   __shared__ BwdStats stats;
   const int tid = threadIdx.x;
@@ -568,7 +591,7 @@ fused_loss_backward_staged_kernel(const float* __restrict__ x,
     float v[CT];
 #pragma unroll
     for (int c = 0; c < CT; ++c) v[c] = span[tid * CT + c];
-    backward_pixel<CT>(v, CT, target, stats, P);
+    backward_pixel<CT>(v, target, stats, P);
 #pragma unroll
     for (int c = 0; c < CT; ++c) span[tid * CT + c] = v[c];
   }
@@ -581,20 +604,20 @@ fused_loss_backward_staged_kernel(const float* __restrict__ x,
   for (int i = 4 * n_vec + tid; i < n_fl; i += kThreads) dst[i] = span[i];
 }
 
-// K2b, any accepted layout: one thread per pixel at the logits' strides;
-// blockIdx.y is the image.
+// K2b, any accepted layout, CT classes: one thread per pixel at the
+// logits' strides; blockIdx.y is the image.  Compiled for four resident
+// blocks (64 registers): left to itself the compiler spills at 15 classes.
 template <int CT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 4)
 fused_loss_backward_direct_kernel(const float* __restrict__ x,
                                   const uint8_t* __restrict__ t,
                                   const float* __restrict__ cw,
                                   const float* __restrict__ acc,
                                   const float* __restrict__ cotangent,
-                                  float* __restrict__ dx, int C, Layout L,
+                                  float* __restrict__ dx, Layout L,
                                   BwdParams P) {
-  constexpr int kN = kClassSlots<CT>;
   __shared__ BwdStats stats;
-  load_stats(stats, acc, cw, cotangent, C, P);
+  load_stats(stats, acc, cw, cotangent, CT, P);
   __syncthreads();
 
   const long long hw = static_cast<long long>(blockIdx.x) * kThreads +
@@ -603,16 +626,12 @@ fused_loss_backward_direct_kernel(const float* __restrict__ x,
   const long long b = blockIdx.y;
   const long long base = b * L.sB + hw * L.sP;
   const int target = t[b * L.HW + hw];
-  float v[kN];
+  float v[CT];
 #pragma unroll
-  for (int c = 0; c < kN; ++c) {
-    if (CT > 0 || c < C) v[c] = x[base + c * L.sC];
-  }
-  backward_pixel<CT>(v, C, target, stats, P);
+  for (int c = 0; c < CT; ++c) v[c] = x[base + c * L.sC];
+  backward_pixel<CT>(v, target, stats, P);
 #pragma unroll
-  for (int c = 0; c < kN; ++c) {
-    if (CT > 0 || c < C) dx[base + c * L.sC] = v[c];
-  }
+  for (int c = 0; c < CT; ++c) dx[base + c * L.sC] = v[c];
 }
 
 // ------------------------------------------------------------------- //
@@ -1108,8 +1127,26 @@ int wide_span(int C) {
   return n;
 }
 
-// Class counts with compile-time instantiations (both schemas').
-bool known_classes(int C) { return C == 9 || C == 11; }
+// The class counts with kernels of their own: every one up to kNarrowC.
+using NarrowClasses = std::integer_sequence<int, 1, 2, 3, 4, 5, 6, 7, 8, 9,
+                                            10, 11, 12, 13, 14, 15, 16>;
+
+// launch(std::integral_constant<int, C>{}): the launch of C's own
+// instantiation, for C in NarrowClasses; cudaErrorInvalidValue otherwise.
+template <class F, int... Cs>
+cudaError_t with_class_count(int C, F&& launch,
+                             std::integer_sequence<int, Cs...>) {
+  cudaError_t e = cudaErrorInvalidValue;
+  static_cast<void>(
+      ((C == Cs && (e = launch(std::integral_constant<int, Cs>{}), true)) ||
+       ...));
+  return e;
+}
+
+template <class F>
+cudaError_t with_class_count(int C, F&& launch) {
+  return with_class_count(C, launch, NarrowClasses{});
+}
 
 // The wide staged K2a with T threads per pixel of a span, opted in to its
 // shared memory (above 48 KB at more than 48 classes).
@@ -1127,12 +1164,12 @@ cudaError_t launch_wide_staged(const float* x, const uint8_t* t,
   return cudaGetLastError();
 }
 
-// Whether logits at these strides are dense channels_last (flat [N][C])
-// and, with dx where there is one, 16-byte aligned: what the staged kernels
-// take.
+// Whether logits at these strides are dense channels_last (flat [N][C];
+// at one class, whatever the class stride) and, with dx where there is one,
+// 16-byte aligned: what the staged kernels take.
 bool flat_aligned(const float* x, const float* dx, int C, long long HW,
                   long long sB, long long sC, long long sP) {
-  const bool flat = sC == 1 && sP == C && sB == HW * C;
+  const bool flat = (sC == 1 || C == 1) && sP == C && sB == HW * C;
   return flat && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
          reinterpret_cast<uintptr_t>(dx) % 16 == 0;
 }
@@ -1160,15 +1197,15 @@ extern "C" long long fused_loss_workspace(long long N, long long HW, int C) {
 
 extern "C" int fused_loss_max_classes() { return kMaxC; }
 
-// Which K2a kernel the layout gets: 1 the direct kernel with a
-// compile-time C, 0 with a run-time C held in registers; above kNarrowC
-// classes 4 the wide staged kernel (dense channels_last, 16-byte aligned),
-// 3 the wide kernel (any other layout).
+// Which K2a kernel the layout gets: up to kNarrowC classes 1, the direct
+// kernel of the class count, whatever the layout; above, 4 the wide staged
+// kernel (dense channels_last, 16-byte aligned), 3 the wide kernel (any
+// other layout).
 extern "C" int fused_loss_forward_variant(const float* x, int C,
                                           long long HW, long long sB,
                                           long long sC, long long sP) {
   if (C > kNarrowC) return flat_aligned(x, x, C, HW, sB, sC, sP) ? 4 : 3;
-  return known_classes(C) ? 1 : 0;
+  return 1;
 }
 
 // K2a: out[3C + 4] = (inter[C], sump[C], cnt[C], nll_sum, wsum, focal_sum,
@@ -1203,18 +1240,22 @@ extern "C" int fused_loss_forward_f32(const float* x, const uint8_t* t,
       e = launch_wide_staged<4>(x, t, cw, workspace, C, N, P, grid, smem, s);
     }
     if (e != cudaSuccess) return static_cast<int>(e);
-  } else if (C == 9) {
-    fused_loss_forward_direct_kernel<9><<<grid, kThreads, 0, s>>>(
-        x, t, cw, workspace, C, L, P);
-  } else if (C == 11) {
-    fused_loss_forward_direct_kernel<11><<<grid, kThreads, 0, s>>>(
-        x, t, cw, workspace, C, L, P);
   } else if (C > kNarrowC) {
     fused_loss_forward_wide_kernel<<<grid, kThreads, 0, s>>>(
         x, t, cw, workspace, C, L, P);
   } else {
-    fused_loss_forward_direct_kernel<0><<<grid, kThreads, 0, s>>>(
-        x, t, cw, workspace, C, L, P);
+    const cudaError_t e = with_class_count(C, [&](auto ct) {
+      constexpr int CT = decltype(ct)::value;
+      if constexpr (kFwdBlocks<CT> == 0) {
+        fused_loss_forward_direct_kernel<CT>
+            <<<grid, kThreads, 0, s>>>(x, t, cw, workspace, L, P);
+      } else {
+        fused_loss_forward_direct_blocks_kernel<CT>
+            <<<grid, kThreads, 0, s>>>(x, t, cw, workspace, L, P);
+      }
+      return cudaGetLastError();
+    });
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -1223,17 +1264,17 @@ extern "C" int fused_loss_forward_f32(const float* x, const uint8_t* t,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Which K2b kernel the layout gets: 2 staged (dense channels_last, C = 9
-// or 11, 16-byte aligned), 1 direct with a compile-time C, 0 direct with a
-// run-time C held in registers; above kNarrowC classes 4 the wide staged
-// kernel (dense channels_last, 16-byte aligned), 3 the wide direct kernel
-// (any other layout).
+// Which K2b kernel the layout gets: up to kNarrowC classes 2 the staged
+// kernel of the class count (dense channels_last, 16-byte aligned), 1 its
+// direct kernel (any other layout); above, 4 the wide staged kernel (dense
+// channels_last, 16-byte aligned), 3 the wide direct kernel (any other
+// layout).
 extern "C" int fused_loss_backward_variant(const float* x, const float* dx,
                                            int C, long long HW, long long sB,
                                            long long sC, long long sP) {
   const bool staged = flat_aligned(x, dx, C, HW, sB, sC, sP);
   if (C > kNarrowC) return staged ? 4 : 3;
-  return known_classes(C) ? (staged ? 2 : 1) : 0;
+  return staged ? 2 : 1;
 }
 
 // K2b: dx (at the logits' strides) from K2a's out vector `acc` and the
@@ -1258,14 +1299,11 @@ extern "C" int fused_loss_backward_f32(const float* x, const uint8_t* t,
   const int variant = fused_loss_backward_variant(x, dx, C, HW, sB, sC, sP);
   if (variant == 2 && !direct) {
     const unsigned blocks = static_cast<unsigned>(ceil_div(N, kThreads));
-    if (C == 9) {
-      fused_loss_backward_staged_kernel<9><<<blocks, kThreads, 0, s>>>(
-          x, t, cw, acc, cotangent, dx, N, P);
-    } else {
-      fused_loss_backward_staged_kernel<11><<<blocks, kThreads, 0, s>>>(
-          x, t, cw, acc, cotangent, dx, N, P);
-    }
-    return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(with_class_count(C, [&](auto ct) {
+      fused_loss_backward_staged_kernel<decltype(ct)::value>
+          <<<blocks, kThreads, 0, s>>>(x, t, cw, acc, cotangent, dx, N, P);
+      return cudaGetLastError();
+    }));
   }
   if (variant == 4 && !direct) {
     const int n_span = wide_span(C);
@@ -1280,15 +1318,11 @@ extern "C" int fused_loss_backward_f32(const float* x, const uint8_t* t,
   if (C > kNarrowC) {
     fused_loss_backward_wide_kernel<<<grid, kThreads, 0, s>>>(
         x, t, cw, acc, cotangent, dx, C, L, P);
-  } else if (C == 9) {
-    fused_loss_backward_direct_kernel<9><<<grid, kThreads, 0, s>>>(
-        x, t, cw, acc, cotangent, dx, C, L, P);
-  } else if (C == 11) {
-    fused_loss_backward_direct_kernel<11><<<grid, kThreads, 0, s>>>(
-        x, t, cw, acc, cotangent, dx, C, L, P);
-  } else {
-    fused_loss_backward_direct_kernel<0><<<grid, kThreads, 0, s>>>(
-        x, t, cw, acc, cotangent, dx, C, L, P);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(with_class_count(C, [&](auto ct) {
+    fused_loss_backward_direct_kernel<decltype(ct)::value>
+        <<<grid, kThreads, 0, s>>>(x, t, cw, acc, cotangent, dx, L, P);
+    return cudaGetLastError();
+  }));
 }

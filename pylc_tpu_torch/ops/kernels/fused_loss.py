@@ -8,16 +8,16 @@ that reduces the logits to the 3C + 4 statistics all three losses need;
 gradient per pixel from those statistics.  The kernels are
 ``pylc_tpu_torch/csrc/fused_loss.cu`` (its header gives the math, the
 bounds and the design), built by ``_build`` and called through ``ctypes``
-on PyTorch's current stream.  Up to ``NARROW_CLASSES`` classes K2a has
-one kernel for every accepted layout, with the class count at compile
-time for 9 and 11 classes (``forward_variant``).  K2b has two kernels,
-and ``backward_variant`` says which one a logits tensor gets: one that
-stages a block's span through shared memory, for dense ``channels_last``
-logits with 9 or 11 classes, and a direct one for every other accepted
-layout.  Above ``NARROW_CLASSES`` classes, up to ``MAX_CLASSES`` (the
-Pallas loss's limit), K2a and K2b each have a wide staged kernel for
-dense ``channels_last`` logits and a wide kernel for every other layout,
-none of which holds a per-class array in registers.
+on PyTorch's current stream.  Up to ``NARROW_CLASSES`` classes every
+class count has kernels of its own, the class count compiled in: K2a one
+for every accepted layout (``forward_variant``), K2b two, and
+``backward_variant`` says which one a logits tensor gets: one that stages
+a block's span through shared memory, for dense ``channels_last`` logits,
+and a direct one for every other accepted layout.  Above
+``NARROW_CLASSES`` classes, up to ``MAX_CLASSES`` (the Pallas loss's
+limit), K2a and K2b each have a wide staged kernel for dense
+``channels_last`` logits and a wide kernel for every other layout, none
+of which holds a per-class array in registers.
 
 Logits are ``[B, C, H, W]`` f32, either contiguous NCHW or
 ``channels_last`` (the train step hands over the latter); targets are
@@ -47,12 +47,9 @@ SOURCE = _build.source_path("fused_loss")
 # the bound compiled into the kernels (kMaxC in the source): the Pallas
 # kernel's, which asserts C <= 128
 MAX_CLASSES = 128
-# most classes the register-held kernels take (kNarrowC); more run on the
-# wide kernels
+# most classes the register-held kernels take (kNarrowC), each class count
+# with kernels of its own; more run on the wide kernels
 NARROW_CLASSES = 16
-# class counts with compile-time instantiations of K2a and K2b (both
-# schemas')
-KNOWN_CLASSES = (9, 11)
 # the direct kernels put the image index into the grid's y dimension
 MAX_BATCH = 65535
 
@@ -232,28 +229,26 @@ def _pixel_stride(logits: torch.Tensor) -> int:
 # names of the kernels, by the code ``fused_loss_forward_variant`` and
 # ``fused_loss_backward_variant`` return
 VARIANTS = {4: "wide-staged", 3: "wide", 2: "staged<C={C}>",
-            1: "direct<C={C}>", 0: "direct<runtime C>"}
+            1: "direct<C={C}>"}
 
 
 def _flat(logits: torch.Tensor) -> bool:
     """Whether ``logits`` (an accepted layout) is dense channels_last: class
-    stride 1, pixel stride C, batch stride H*W*C."""
+    stride 1 (any at one class), pixel stride C, batch stride H*W*C."""
     B, C, H, W = logits.shape
-    return (logits.stride(1) == 1 and _pixel_stride(logits) == C
+    return ((logits.stride(1) == 1 or C == 1) and _pixel_stride(logits) == C
             and logits.stride(0) == H * W * C)
 
 
 def forward_variant_code(logits: torch.Tensor, aligned: bool = True) -> int:
     """Which K2a kernel ``logits`` (an accepted layout) gets, as the
-    library's dispatch decides it: 1 the direct kernel with a compile-time
-    class count, 0 with a run-time class count held in registers, whatever
-    the layout; above ``NARROW_CLASSES`` classes 4 the wide staged kernel
-    (dense channels_last, logits 16-byte aligned) and 3 the wide kernel
-    (any other layout)."""
-    C = logits.shape[1]
-    if C > NARROW_CLASSES:
+    library's dispatch decides it: up to ``NARROW_CLASSES`` classes 1, the
+    direct kernel of the class count, whatever the layout; above, 4 the
+    wide staged kernel (dense channels_last, logits 16-byte aligned) and 3
+    the wide kernel (any other layout)."""
+    if logits.shape[1] > NARROW_CLASSES:
         return 4 if _flat(logits) and aligned else 3
-    return 1 if C in KNOWN_CLASSES else 0
+    return 1
 
 
 def forward_variant(logits: torch.Tensor) -> str:
@@ -264,19 +259,15 @@ def forward_variant(logits: torch.Tensor) -> str:
 
 def backward_variant_code(logits: torch.Tensor, aligned: bool = True) -> int:
     """Which K2b kernel ``logits`` (an accepted layout) gets, as the
-    library's dispatch decides it: 2 the staged kernel (a compile-time
-    class count, dense channels_last: class stride 1, pixel stride C,
-    batch stride H*W*C; logits and dlogits 16-byte aligned), 1 the direct
-    kernel with a compile-time class count, 0 the direct kernel with a
-    run-time class count held in registers; above ``NARROW_CLASSES``
-    classes 4 the wide staged kernel (dense channels_last, aligned) and 3
-    the wide direct kernel (any other layout)."""
-    C = logits.shape[1]
+    library's dispatch decides it: up to ``NARROW_CLASSES`` classes 2 the
+    staged kernel of the class count (dense channels_last: class stride 1,
+    pixel stride C, batch stride H*W*C; logits and dlogits 16-byte
+    aligned) and 1 its direct kernel (any other layout); above, 4 the wide
+    staged kernel (dense channels_last, aligned) and 3 the wide direct
+    kernel (any other layout)."""
     staged = _flat(logits) and aligned
-    if C > NARROW_CLASSES:
+    if logits.shape[1] > NARROW_CLASSES:
         return 4 if staged else 3
-    if C not in KNOWN_CLASSES:
-        return 0
     return 2 if staged else 1
 
 

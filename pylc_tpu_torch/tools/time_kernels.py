@@ -18,7 +18,10 @@ and at C=128 on 512x512, K2a and K2b at [8, 20, 512, 512] and
 and C=6, G=3 at r=3); and from a host loop and graphs both, K1 at
 r = 6 to 8 (``k1_c<C>g<G>r<r>``: C=9, G=3 at r = 6, 7, 8; C=11, G=1 and
 C=20, G=3 at r=8; C=20, G=3 at r=6) on the same grid and at C=128, G=3,
-r=8 on 512x512 (``k1_wide128r8``).  It prints one JSON line.  With
+r=8 on 512x512 (``k1_wide128r8``); and from a host loop and graphs both,
+K2a and K2b at [8, C, 512, 512] channels_last for users' schemas of
+C = 6, 8, 12 and 16 classes (``k2a_c<C>``, ``k2b_c<C>``).  It prints one
+JSON line.  With
 ``--against DIR`` (another checkout of this repository, say the parent
 commit unpacked by ``git archive``) it times DIR, this, this, DIR,
 ``--rounds`` times over, each in
@@ -117,6 +120,8 @@ for C, G, r in ((9, 3, 6), (9, 3, 7), (9, 3, 8), (11, 1, 8), (20, 3, 6),
 k1("k1_wide128r8", 128, 512, 512, True, 3, 8)
 k2("_wide20", 20, False)
 k2("_wide128", 128, False)
+for C in (6, 8, 12, 16):
+    k2(f"_c{C}", C, True)
 out = {"card": subprocess.run(
            ["nvidia-smi", "--query-gpu=name,power.limit",
             "--format=csv,noheader"], capture_output=True, text=True,

@@ -34,7 +34,7 @@ MODULES = [
     "pylc_tpu_torch.db.database", "pylc_tpu_torch.db.dataset",
     "pylc_tpu_torch.checkpoint", "pylc_tpu_torch.trainer",
     "pylc_tpu_torch.tools", "pylc_tpu_torch.tools.time_kernels",
-    "pylc_tpu_torch.tools.k1_variants",
+    "pylc_tpu_torch.tools.k1_variants", "pylc_tpu_torch.tools.k2_variants",
     "pylc_tpu_torch.utils.balance", "pylc_tpu_torch.utils.synthetic",
     "pylc_tpu_torch.ops.palette", "pylc_tpu_torch.ops.profile",
     "pylc_tpu_torch.ops.augment_ops", "pylc_tpu_torch.extract",

@@ -8,7 +8,9 @@ NHWC.  Values agree at rtol 1e-5; gradients (torch autograd against
 ``jax.grad``) at rtol 2e-4, atol 1e-7, the tolerance of
 tests/test_pallas_loss.py: the sums run in another order."""
 
+import json
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -230,6 +232,27 @@ def _cl(*shape):
     return torch.zeros(*shape).contiguous(memory_format=torch.channels_last)
 
 
+def _unaligned(B, C, H, W):
+    """Dense channels_last logits 4 bytes into 16-byte aligned storage."""
+    flat = torch.zeros(B * H * W * C + 1)
+    assert flat.data_ptr() % 16 == 0
+    x = flat[1:].view(B, H, W, C).permute(0, 3, 1, 2)
+    assert x.is_contiguous(memory_format=torch.channels_last)
+    assert x.data_ptr() % 16 == 4
+    return x
+
+
+# every class count with kernels of its own, on the three layouts: dense
+# channels_last (the train step's), the same unaligned, contiguous NCHW (at
+# one class the same memory as channels_last)
+NARROW_LAYOUTS = [
+    case for C in range(1, fl.NARROW_CLASSES + 1) for case in (
+        (_cl(2, C, 5, 3), True, 2, 1, f"staged<C={C}>"),
+        (_unaligned(2, C, 5, 3), False, 1, 1, f"direct<C={C}>"),
+        (torch.zeros(2, C, 5, 3), True, 2 if C == 1 else 1, 1,
+         f"staged<C={C}>" if C == 1 else f"direct<C={C}>"))]
+
+
 @pytest.mark.parametrize("logits,aligned,code,name", [
     (_cl(8, 9, 16, 16), True, 2, "staged<C=9>"),       # the train step's
     (_cl(1, 11, 37, 29), True, 2, "staged<C=11>"),     # ragged span
@@ -237,23 +260,25 @@ def _cl(*shape):
     (_cl(2, 9, 4, 4), False, 1, "direct<C=9>"),        # unaligned storage
     (torch.zeros(2, 9, 4, 4), True, 1, "direct<C=9>"),  # contiguous NCHW
     (torch.zeros(1, 11, 37, 29), True, 1, "direct<C=11>"),
-    (_cl(2, 10, 4, 4), True, 0, "direct<runtime C>"),  # an even stride
-    (_cl(2, 4, 4, 4), True, 0, "direct<runtime C>"),
-    (torch.zeros(2, 16, 3, 3), True, 0, "direct<runtime C>"),
+    (_cl(2, 10, 4, 4), True, 2, "staged<C=10>"),       # an even stride
+    (_cl(2, 4, 4, 4), True, 2, "staged<C=4>"),
+    (torch.zeros(2, 16, 3, 3), True, 1, "direct<C=16>"),
     (_cl(2, 17, 4, 4), True, 4, "wide-staged"),        # past the registers
     (torch.zeros(2, 20, 3, 3), True, 3, "wide"),
     (_cl(1, 128, 5, 3), False, 3, "wide"),
     (_cl(1, 128, 5, 3), True, 4, "wide-staged"),
     (_cl(2, 20, 1, 7), True, 4, "wide-staged"),        # H = 1
     (torch.zeros(1, 17, 5, 3), True, 3, "wide"),
+    *[(x, aligned, code, name) for x, aligned, code, _, name
+      in NARROW_LAYOUTS],
 ], ids=lambda v: v if isinstance(v, str) else None)
 def test_backward_variant_choice(logits, aligned, code, name):
-    """Which K2b kernel a layout gets: the staged ones only for dense
-    channels_last logits, below 17 classes with a schema's (odd) class
-    count."""
+    """Which K2b kernel a layout gets: up to 16 classes the staged kernel
+    of the class count for dense channels_last logits and its direct
+    kernel for every other layout; above, the wide ones likewise."""
     assert fl.backward_variant_code(logits, aligned) == code
     assert fl.VARIANTS[code].format(C=logits.shape[1]) == name
-    if aligned:
+    if aligned == (logits.data_ptr() % 16 == 0):
         assert fl.backward_variant(logits) == name
 
 
@@ -264,9 +289,9 @@ def test_backward_variant_choice(logits, aligned, code, name):
     (_cl(1, 11, 5, 1), 1, "direct<C=11>"),             # W = 1
     (torch.zeros(2, 9, 4, 4), 1, "direct<C=9>"),       # contiguous NCHW
     (torch.zeros(1, 11, 37, 29), 1, "direct<C=11>"),
-    (_cl(2, 10, 4, 4), 0, "direct<runtime C>"),
-    (_cl(2, 1, 4, 4), 0, "direct<runtime C>"),         # one class
-    (torch.zeros(2, 16, 3, 3), 0, "direct<runtime C>"),
+    (_cl(2, 10, 4, 4), 1, "direct<C=10>"),
+    (_cl(2, 1, 4, 4), 1, "direct<C=1>"),               # one class
+    (torch.zeros(2, 16, 3, 3), 1, "direct<C=16>"),
     (_cl(2, 17, 4, 4), 4, "wide-staged"),
     (torch.zeros(2, 20, 3, 3), 3, "wide"),
     (_cl(1, 128, 5, 3), 4, "wide-staged"),
@@ -274,12 +299,16 @@ def test_backward_variant_choice(logits, aligned, code, name):
     (_cl(1, 33, 5, 1), 4, "wide-staged"),              # W = 1
     (torch.zeros(1, 17, 5, 3), 3, "wide"),
     (torch.zeros(1, 128, 4, 4), 3, "wide"),
+    *[(x, code, f"direct<C={x.shape[1]}>")
+      for x, _, _, code, _ in NARROW_LAYOUTS],
 ], ids=lambda v: v if isinstance(v, str) else None)
 def test_forward_variant_choice(logits, code, name):
-    """Which K2a kernel a tensor gets: up to 16 classes by the class count
-    alone, whatever the layout; above, the wide staged kernel for dense
-    channels_last logits and the wide kernel for contiguous NCHW."""
-    assert fl.forward_variant_code(logits) == code
+    """Which K2a kernel a tensor gets: up to 16 classes the direct kernel
+    of the class count, whatever the layout and alignment; above, the wide
+    staged kernel for dense channels_last logits and the wide kernel for
+    contiguous NCHW."""
+    assert fl.forward_variant_code(logits, logits.data_ptr() % 16 == 0) \
+        == code
     assert fl.VARIANTS[code].format(C=logits.shape[1]) == name
     assert fl.forward_variant(logits) == name
 
@@ -290,12 +319,7 @@ def test_forward_variant_takes_an_unaligned_pointer():
     to 16 classes, and above them the wide kernels where aligned logits
     get the wide staged ones."""
     def unaligned(C):
-        flat = torch.zeros(2 * 4 * 4 * C + 1)
-        assert flat.data_ptr() % 16 == 0
-        x = flat[1:].view(2, 4, 4, C).permute(0, 3, 1, 2)
-        assert x.is_contiguous(memory_format=torch.channels_last)
-        assert x.data_ptr() % 16 == 4
-        return x
+        return _unaligned(2, C, 4, 4)
 
     x = unaligned(9)
     assert fl.backward_variant(x) == "direct<C=9>"
@@ -310,16 +334,38 @@ def test_forward_variant_takes_an_unaligned_pointer():
 
 
 def test_backward_variant_known_classes_are_the_schemas_and_odd():
+    """Every class count from 1 to NARROW_CLASSES, both schemas' among
+    them, has its own K2a direct, K2b staged and K2b direct kernels in the
+    source: the dispatch's list of class counts is exactly 1..16, each
+    kernel (K2a's in two forms, without and with a register budget) is
+    launched through it with its class count compiled in, and no run-time
+    class count is left (the staged kernel takes even class counts too)."""
     from pylc_tpu_torch.config import Schema
-    assert set(fl.KNOWN_CLASSES) == {Schema.load(s).n_classes
-                                     for s in ("schema_a", "schema_b")}
-    assert all(c % 2 == 1 for c in fl.KNOWN_CLASSES)  # bank-conflict free
+    counts = list(range(1, fl.NARROW_CLASSES + 1))
+    assert {Schema.load(s).n_classes
+            for s in ("schema_a", "schema_b")} <= set(counts)
     with open(fl.SOURCE) as f:
         src = f.read()
-    for c in fl.KNOWN_CLASSES:
-        for kernel in ("backward_staged", "backward_direct",
-                       "forward_direct"):
-            assert f"fused_loss_{kernel}_kernel<{c}>" in src
+    assert f"constexpr int kNarrowC = {fl.NARROW_CLASSES};" in src
+    listed = re.search(r"using NarrowClasses = std::integer_sequence<int,"
+                       r"([\d,\s]+)>;", src)
+    assert [int(c) for c in listed.group(1).split(",")] == counts
+    for kernel in ("backward_staged", "backward_direct"):
+        launch = f"fused_loss_{kernel}_kernel<decltype(ct)::value>"
+        assert src.count(launch) == 1, kernel
+        before = src[:src.index(launch)]
+        assert before.rstrip().endswith(
+            "with_class_count(C, [&](auto ct) {"), kernel
+    # K2a: one kernel up to 9 classes, one with a register budget from 10
+    head = ("with_class_count(C, [&](auto ct) {\n"
+            "      constexpr int CT = decltype(ct)::value;")
+    assert src.count(head) == 1
+    launches = src[src.index(head):src.index("});", src.index(head))]
+    for kernel in ("forward_direct", "forward_direct_blocks"):
+        assert f"fused_loss_{kernel}_kernel<CT>" in launches, kernel
+    for gone in ("kClassSlots", "slot_index", "CT % 2 == 1", "kernel<0>",
+                 "known_classes"):
+        assert gone not in src, gone
 
 
 @pytest.mark.parametrize("shape,cl", [((2, 9, 5, 7), True),
@@ -350,7 +396,21 @@ def test_plain_backward_matches_pallas_at_wide_boundaries(C):
     channels_last logits it takes, a ragged last span, a tenth of the
     targets outside [0, C); the plain K2b's dlogits against the Pallas
     backward kernel in interpret mode."""
-    B, H, W = 1, 7, 9
+    _plain_backward_against_pallas(C, (1, 7, 9), "wide-staged")
+
+
+@pytest.mark.parametrize("C", [2, 6, 8, 12, 13, 16])
+def test_plain_backward_matches_pallas_at_narrow_class_counts(C):
+    """Users' schemas up to 16 classes, each on its own staged K2b (the
+    Pallas kernel pads every count to a multiple of 8): dense channels_last
+    logits, a ragged last span of 256 pixels, a tenth of the targets
+    outside [0, C); the plain K2b's dlogits against the Pallas backward
+    kernel in interpret mode."""
+    _plain_backward_against_pallas(C, (2, 13, 23), f"staged<C={C}>")
+
+
+def _plain_backward_against_pallas(C, bhw, variant):
+    B, H, W = bhw
     x, t, cw = _inputs(C, B, H, W, C, out_of_range=True)
     w = LossWeights(weighted=C % 2 == 1)
     jw = JaxLossWeights(weighted=C % 2 == 1)
@@ -361,7 +421,7 @@ def test_plain_backward_matches_pallas_at_wide_boundaries(C):
 
     jgrad = jax.grad(jloss)(jnp.asarray(x))
     xt = _torch_x(x, channels_last=True)
-    assert fl.backward_variant(xt) == "wide-staged"
+    assert fl.backward_variant(xt) == variant
     total, _ = fl.fused_multi_loss(xt, torch.from_numpy(t),
                                    torch.from_numpy(cw), w)
     total.backward()
@@ -388,8 +448,15 @@ def _pallas_statistics(x_nhwc, t, cw, jw):
     ((3, 9, 61, 53), True, False),
     ((1, 11, 37, 29), True, True),     # schema_b's classes
     ((1, 11, 37, 29), False, True),    # contiguous NCHW
-    ((3, 10, 4, 6), True, True),       # run-time class count
+    ((3, 10, 4, 6), True, True),       # an even class count
     ((2, 4, 33, 65), False, False),
+    # class counts of users' schemas up to 16, each on its own kernel
+    ((3, 2, 19, 23), True, False),
+    ((2, 6, 21, 17), True, True),
+    ((1, 8, 37, 29), True, False),
+    ((2, 12, 13, 31), False, True),
+    ((1, 13, 29, 17), True, True),
+    ((2, 16, 17, 19), True, False),
     # past 16 classes: the wide staged kernel (channels_last; its span of
     # 256, 128 or 64 pixels changes at 33 and 65 classes) and the wide
     # kernel (contiguous NCHW)
@@ -409,7 +476,7 @@ def test_plain_forward_at_each_variants_layout(shape, cl, weighted):
     xt = _torch_x(x, channels_last=cl).detach()
     assert fl.forward_variant(xt) == (
         ("wide-staged" if cl else "wide") if C > fl.NARROW_CLASSES else
-        f"direct<C={C}>" if C in fl.KNOWN_CLASSES else "direct<runtime C>")
+        f"direct<C={C}>")
     got = fl.fused_loss_forward(xt, torch.from_numpy(t),
                                 torch.from_numpy(cw),
                                 LossWeights(weighted=weighted))
@@ -480,3 +547,94 @@ def test_kernel_source_states_the_bound():
     assert "3.35 TB/s" in header and "device memory bounds both" in header
     assert "fused_loss_forward_direct_kernel<C>" in header
     assert "fused_loss_forward_staged" not in src  # tried, timed, not kept
+
+
+def _write_schema(path, n_classes):
+    """A schema file of ``n_classes`` classes with distinct colours, in
+    the packaged schemas' format."""
+    classes = [{"label": f"class {i}", "code": f"C{i}",
+                "colour": {"rgb": [i, 255 - i, (7 * i) % 256],
+                           "hex": "#%02x%02x%02x" % (i, 255 - i,
+                                                     (7 * i) % 256)}}
+               for i in range(n_classes)]
+    with open(path, "w") as f:
+        json.dump({"classes": classes}, f)
+    return str(path)
+
+
+def test_six_class_schema_train_step_matches_jax(tmp_path):
+    """A user's 6-class ``--schema``: one AdamW step of DeepLabV3+/ResNet101
+    with the fused loss (on the card K2a ``direct<C=6>`` and K2b
+    ``staged<C=6>``; here their plain versions) against the JAX package's
+    step (the Pallas loss in interpret mode, the classes padded to 8), at
+    tests/test_torch_train.py's sizes and bn3 scaling, held as that file
+    holds schema_a's first step: the metrics at METRIC_RTOL, and the
+    clipped gradient, read from AdamW's moments, per tensor within
+    MOMENT_RTOL of JAX's norm plus the port's own f32-to-f64 distance.
+    (After one AdamW step a parameter whose gradient entry lies within
+    rounding of zero moves by up to 2 lr either way in any package, so the
+    moments and not the parameters carry the comparison.)  The batch is
+    that file's first one: on other batches the backbone's f32 rounding,
+    spread to every tensor by the global-norm clip, can pass the bound by
+    the same amount with the plain loss on both sides as with the fused
+    one, at 9 classes as at 6 (ROADMAP Queue 3)."""
+    from flax import linen as fnn
+
+    from pylc_tpu.config import Config as JaxConfig
+    from pylc_tpu.models.registry import build_model as jax_build_model
+    from pylc_tpu.train_state import init_state
+    from pylc_tpu.train_state import make_train_step as jax_make_train_step
+    from pylc_tpu_torch.convert import state_dict_from_jax
+    from pylc_tpu_torch.train_state import make_optimizer, make_train_step
+    from test_torch_train import (BATCH, METRIC_RTOL, MOMENT_RTOL,
+                                  NOISE_FACTOR, SPE, STEP_KEYS, TILE,
+                                  _assert_metrics_close, _batch,
+                                  _condition, _flip_of, _InF64, _jax_moments, _jax_tree,
+                                  _no_dropout, _np_tree, _port_model,
+                                  _port_moments)
+    C = 6
+    cfg = JaxConfig().replace(
+        schema=_write_schema(tmp_path / "six.json", C), tile_size=TILE,
+        batch_size=BATCH, compute_dtype="float32", fused_loss="on")
+    assert cfg.n_classes == C
+    state, _ = init_state(cfg, jax.random.PRNGKey(0), SPE)
+    params = _condition(_np_tree(state.params))
+    stats = _np_tree(state.batch_stats)
+    state = state.replace(params=_jax_tree(params))
+    img, mask = _batch(100)    # the file's first step, targets in [0, C)
+    mask %= C
+    key = jax.random.PRNGKey(STEP_KEYS[0])
+    with fnn.intercept_methods(_no_dropout):
+        jstate, jm = jax_make_train_step(
+            cfg, jax_build_model(cfg, train=True))(
+                state, jnp.asarray(img), jnp.asarray(mask), key)
+    metrics, moments = [], []
+    launches = (fl.fused_loss_forward.launches,
+                fl.fused_loss_backward.launches)
+    for dtype in (torch.float32, torch.float64):
+        model = _port_model(cfg, params, stats).to(dtype)
+        opt, sched = make_optimizer(cfg, model, SPE)
+        step = make_train_step(cfg, model if dtype == torch.float32
+                               else _InF64(model), opt, sched)
+        metrics.append(step(torch.from_numpy(img), torch.from_numpy(mask),
+                            flip=_flip_of(key)))
+        moments.append(_port_moments(model, opt))
+    # the CPU path runs the plain versions; the card's kernels for the
+    # train step's channels_last logits are the class count's own
+    assert (fl.fused_loss_forward.launches,
+            fl.fused_loss_backward.launches) == launches
+    logits = _cl(BATCH, C, TILE, TILE)
+    assert (fl.forward_variant(logits), fl.backward_variant(logits)) == \
+        ("direct<C=6>", "staged<C=6>")
+    _assert_metrics_close(metrics[0], jm, rtol=METRIC_RTOL)
+    want = tuple(state_dict_from_jax(tree, stats) for tree in
+                 _jax_moments(_np_tree(jstate.opt_state)))
+    assert want[0]["decoder.last_conv.8.weight"].shape[0] == C
+    for got, f64, ref in zip(*moments, want):
+        assert set(got) <= set(ref)
+        for k in got:
+            err = float((got[k].double() - ref[k].double()).norm())
+            floor = float((got[k].double() - f64[k]).norm())
+            scale = float(ref[k].double().norm())
+            assert err <= MOMENT_RTOL * scale + NOISE_FACTOR * floor, \
+                (k, err, scale, floor)
