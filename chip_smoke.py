@@ -98,10 +98,17 @@ Phases, in order; any failed check raises, and the script exits non-zero:
   [train]  the training path: ``trainer.train`` at full width (512 px,
            batch 8, bf16 autocast, AdamW with step_lr, clip 0.5, the fused
            loss on K2a/K2b) on an in-memory DB of 40 seeded tiles for 2
-           epochs, from seeded He-normal weights; the best model loads
-           through ``tester.load_model`` and segments a 1024x1024 photo;
-           then 10 timed steps on one fixed batch, whose loss must fall,
-           one of them under ``torch.profiler``.
+           epochs, from seeded He-normal weights; the JAX package's files
+           it writes beside its own (``checkpoint.ckpt`` and
+           ``<model_id>.ckpt`` with their ``.meta``, the seconds of each
+           save in each format): ``checkpoint.ckpt`` through
+           ``convert.load_ckpt_checkpoint`` into a fresh model, optimizer
+           and scheduler equals ``checkpoint.pth`` bit for bit (weights,
+           statistics, moments, step counts, lrs); the best model's
+           ``.pth`` and ``.ckpt`` load through ``tester.load_model`` and
+           segment a 1024x1024 photo to the same class map; then 10 timed
+           steps on one fixed batch, whose loss must fall, one of them
+           under ``torch.profiler``.
   [remat]  ``remat_backbone``: the f32 remat step of DeepLabV3+/ResNet101
            against the plain one (TF32 off, cudnn.deterministic, batch 2:
            losses and running statistics within REMAT_RTOL, every gradient
@@ -131,7 +138,13 @@ Phases, in order; any failed check raises, and the script exits non-zero:
            forward call in both paths a full batch of one shape), >= 99.9%
            at batch 16; K1 5 x n times per photo on bands of the
            planned height, and K1 on an extended band against K1 on the
-           whole grid row for row; then 2 ranks on cuda:0 under gloo
+           whole grid row for row; the archive path on each mesh: 4 seeded
+           3584x2048 photos through ``segment_many`` (each band uploaded on
+           a copy stream from pinned memory) and through ``segment_array``
+           one by one, timed many, one by one, one by one, many, every
+           class map and mask equal, K1 5 x n x 4 times in the first
+           pass, total wall, MP/s, the ratio and each photo's completion
+           time; then 2 ranks on cuda:0 under gloo
            (``parallel.mesh.spawn``): MULTI_STEPS f32 SGD steps at batch 4
            each (TF32 off, every bn3.weight x RESIDUAL_GAIN, dropout 0)
            against one process at batch 8 on the same rows (first-step
@@ -939,13 +952,33 @@ def drive_photo(tag, cfg, model, device, photo, n_timed, k1_kind="tiled"):
     return launches, seg, median
 
 
+def profiled_many(seg, photos, device):
+    """``seg.segment_many(photos)`` under ``torch.profiler`` -> (ms per
+    photo on the compute stream, ms per photo of the profiled run)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize(device)  # the profiler's start is behind
+        t0 = time.perf_counter()
+        seg.segment_many(photos)
+        torch.cuda.synchronize(device)
+        wall = (time.perf_counter() - t0) / len(photos) * 1e3
+    # all device events but the host-to-device copies: the photos' uploads
+    # run on the copy stream beside the kernels, and everything else runs
+    # on the compute stream, one after the other, so the sum is the time
+    # that stream is busy
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith("Memcpy HtoD"))
+    return busy / len(photos) / 1e3, wall
+
+
 def phase_many(seg, device, hw=SLICE_HW):
     """The archive path: MANY_PHOTOS photos through segment_many and
     through segment_array one after the other, timed many, one by one,
     one by one, many."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from pylc_tpu_torch.ops.kernels.crf_kernel import crf_iteration
     rng = np.random.default_rng(21)
     photos = [rng.integers(0, 255, (*hw, 3), dtype=np.uint8)
@@ -1016,21 +1049,7 @@ def phase_many(seg, device, hw=SLICE_HW):
     log(f"[many] segment_many takes {(wall_a + wall_b) / (seq_a + seq_b):.3f}"
         " of the one-by-one wall (timed many, one by one, one by one, many)")
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize(device)  # the profiler's start is behind
-        t0 = time.perf_counter()
-        seg.segment_many(photos[:3])
-        torch.cuda.synchronize(device)
-        profiled = (time.perf_counter() - t0) / 3 * 1e3
-    # all device events but the host-to-device copies: the photos' uploads
-    # run on the copy stream beside the kernels, and everything else runs
-    # on the compute stream, one after the other, so the sum is the time
-    # that stream is busy
-    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA
-                  and not getattr(e, "is_user_annotation", False)
-                  and not e.key.startswith("Memcpy HtoD")) / 3e3
+    busy_ms, profiled = profiled_many(seg, photos[:3], device)
     per_photo = (wall_a + wall_b) / 2 / MANY_PHOTOS * 1e3
     log(f"[many] profiled (3 photos): {busy_ms:.2f} ms per photo on the compute "
         f"stream (the uploads beside it left out); the profiled run took "
@@ -1461,6 +1480,7 @@ def timed_steps(step, img, mask, gen, n: int):
 
 def phase_train(device, workdir):
     """The training path: trainer.train at full width on an in-memory DB,
+    the JAX package's files it wrote beside its own (``check_jax_files``),
     the best model through tester.load_model, then FIXED_STEPS timed
     steps on one fixed batch."""
     from pylc_tpu_torch.config import Config
@@ -1513,18 +1533,28 @@ def phase_train(device, workdir):
             log(f"[train] {name} at step {r[0]}: ce {r[1]:.4f} dice "
                 f"{r[2]:.4f} focal {r[3]:.4f}")
 
-    pth = os.path.join(model_dir, summary["model_id"] + ".pth")
-    lcfg, _, predict = load_model(pth, Config(), device)
+    check_jax_files(summary, model_dir, n_train // cfg.batch_size, device)
+
     photo = np.random.default_rng(12).integers(
         0, 255, (*TRAIN_PHOTO_HW, 3), dtype=np.uint8)
-    res = Segmenter(lcfg, predict, device, batch_size=16).segment_array(photo)
-    cm = res["class_map"]
-    if cm.shape != TRAIN_PHOTO_HW or int(cm.max()) >= lcfg.n_classes:
-        raise AssertionError(f"trained model's class map {cm.shape}")
-    log(f"[train] {os.path.basename(pth)} "
-        f"({os.path.getsize(pth) / 2 ** 20:.1f} MiB) loaded through "
-        f"tester.load_model and segmented a {TRAIN_PHOTO_HW[1]}x"
-        f"{TRAIN_PHOTO_HW[0]} photo: classes {np.unique(cm).tolist()}")
+    maps = {}
+    for ext in (".pth", ".ckpt"):
+        path = os.path.join(model_dir, summary["model_id"] + ext)
+        lcfg, _, predict = load_model(path, Config(), device)
+        cm = Segmenter(lcfg, predict, device,
+                       batch_size=16).segment_array(photo)["class_map"]
+        if cm.shape != TRAIN_PHOTO_HW or int(cm.max()) >= lcfg.n_classes:
+            raise AssertionError(f"trained model's class map {cm.shape}")
+        maps[ext] = cm
+        log(f"[train] {os.path.basename(path)} "
+            f"({os.path.getsize(path) / 2 ** 20:.1f} MiB) loaded through "
+            f"tester.load_model and segmented a {TRAIN_PHOTO_HW[1]}x"
+            f"{TRAIN_PHOTO_HW[0]} photo: classes {np.unique(cm).tolist()}")
+    if not np.array_equal(maps[".pth"], maps[".ckpt"]):
+        differ = float(np.mean(maps[".pth"] != maps[".ckpt"]))
+        raise AssertionError(f"the best model's .ckpt and .pth class maps "
+                             f"differ on {differ:.6%} of pixels")
+    log("[train] the best model's .ckpt and .pth give the same class map")
 
     # FIXED_STEPS steps on one fixed batch, from the trained weights
     model = summary["model"]
@@ -1546,6 +1576,55 @@ def phase_train(device, workdir):
         raise AssertionError(f"total loss did not fall: {totals}")
     _profile_step(step, img, mask, gen, step_ms)
     return launches
+
+
+def check_jax_files(summary, model_dir, steps_per_epoch, device):
+    """The JAX package's files that ``trainer.train`` wrote beside its own:
+    ``checkpoint.ckpt`` and ``<model_id>.ckpt`` with their ``.meta``;
+    ``checkpoint.ckpt`` through ``convert.load_ckpt_checkpoint`` into a
+    fresh model, optimizer and scheduler equal bit for bit to
+    ``checkpoint.pth`` loaded into another; and the seconds of each save
+    in each format."""
+    from pylc_tpu_torch import convert
+    from pylc_tpu_torch.checkpoint import Checkpoint
+    from pylc_tpu_torch.train_state import init_model, make_optimizer
+    cfg, mid = summary["config"], summary["model_id"]
+    names = ["checkpoint.ckpt", "checkpoint.ckpt.meta", f"{mid}.ckpt",
+             f"{mid}.ckpt.meta", "checkpoint.pth", f"{mid}.pth"]
+    missing = [n for n in names
+               if not os.path.exists(os.path.join(model_dir, n))]
+    if missing:
+        raise AssertionError(f"[train] trainer.train wrote no {missing}")
+    sizes = {n: os.path.getsize(os.path.join(model_dir, n)) / 2 ** 20
+             for n in names if not n.endswith(".meta")}
+    for i, saved in enumerate(summary["save_s"]):
+        log(f"[train] save {i + 1} of {len(summary['save_s'])}: the JAX "
+            f"layout (checkpoint.ckpt, with {mid}.ckpt when best) "
+            f"{saved['ckpt']:.3f} s, torch's (checkpoint.pth, with "
+            f"{mid}.pth when best) {saved['pth']:.3f} s")
+    log("[train] file sizes: " + ", ".join(f"{n} {v:.1f} MiB"
+                                           for n, v in sizes.items()))
+
+    def fresh(seed):
+        model = init_model(cfg, seed=seed)
+        model.to(device, memory_format=torch.channels_last)
+        return (model, *make_optimizer(cfg, model, steps_per_epoch))
+    from_pth, from_ckpt = fresh(61), fresh(62)
+    # the port's own resume: checkpoint.pth, written after the .ckpt
+    own = Checkpoint(mid, cfg.save_dir).load(*from_pth, cfg)
+    info = convert.load_ckpt_checkpoint(
+        os.path.join(model_dir, "checkpoint.ckpt"), cfg, *from_ckpt)
+    at = (info["epoch"], info["iter"])
+    differ = _carried_differences(from_pth, from_ckpt)
+    log(f"[train] checkpoint.ckpt through convert.load_ckpt_checkpoint at "
+        f"(epoch, iter) {at} against {os.path.basename(own['file'])} "
+        f"through Checkpoint.load at {(own['epoch'], own['iter'])}: "
+        f"{len(differ)} of the weights, statistics, moments, steps and lrs "
+        f"differ {differ[:3]} (equality required)")
+    if differ or own["file"] != os.path.join(model_dir, "checkpoint.pth") \
+            or at != (own["epoch"], own["iter"]) or at[1] != summary["steps"]:
+        raise AssertionError("[train] checkpoint.ckpt is not the run's "
+                             "checkpoint.pth")
 
 
 def _rel_errors(got, want):
@@ -1864,10 +1943,11 @@ def phase_resume(device, workdir):
     return launches
 
 
-def phase_multi_photo(device, workdir):
+def phase_multi_photo(device, workdir, card):
     """[slice]'s model and photo through the mesh Segmenter on
-    Mesh([cuda:0] * n), n in MULTI_BANDS, in turns with one device.
-    Returns K1's launches over one photo at each n."""
+    Mesh([cuda:0] * n), n in MULTI_BANDS, in turns with one device, then
+    the archive path on each mesh (``phase_multi_many``).  Returns K1's
+    launches over one photo at each n and over the archive paths."""
     from pylc_tpu_torch.config import Config
     from pylc_tpu_torch.infer import Segmenter
     from pylc_tpu_torch.ops.crf import make_crf
@@ -2008,7 +2088,90 @@ def phase_multi_photo(device, workdir):
         f"max_abs_diff {worst:.3e} (bit-equal expected; limit {K1_ATOL:g})")
     if not worst <= K1_ATOL:
         raise AssertionError(f"K1 on a band differs by {worst}")
-    return launches
+    return launches, phase_multi_many(segs, device, card)
+
+
+def phase_multi_many(segs, device, card):
+    """The archive path on a mesh: MANY_PHOTOS seeded photos through
+    ``segment_many`` on each mesh Segmenter of ``segs`` (n -> Segmenter)
+    and through its ``segment_array`` one after the other, timed many, one
+    by one, one by one, many.  Every class map and mask equal; K1 5 x n
+    times per photo in the first pass of ``segment_many``.  Returns K1's
+    launches over those first passes, all n together."""
+    from pylc_tpu_torch.ops.kernels.crf_kernel import crf_iteration
+    rng = np.random.default_rng(22)
+    photos = [rng.integers(0, 255, (*SLICE_HW, 3), dtype=np.uint8)
+              for _ in range(MANY_PHOTOS)]
+    mp = MANY_PHOTOS * SLICE_HW[0] * SLICE_HW[1] / 1e6
+
+    def timed(seg, many):
+        """(results without 'probs', wall seconds)."""
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        if many:
+            out = seg.segment_many(photos)
+        else:
+            out = []
+            for photo in photos:
+                out.append(seg.segment_array(photo))
+                del out[-1]["probs"]  # 264 MB of canvas each
+        torch.cuda.synchronize(device)
+        return out, time.perf_counter() - t0
+
+    total = 0
+    for n, seg in segs.items():
+        seg.segment_many(photos[:2])  # warm-up: the pinned buffers, streams
+        crf_iteration.launches = 0
+        got, wall_a = timed(seg, True)
+        launches = crf_iteration.launches
+        expect = seg.crf.params.n_iters * n * MANY_PHOTOS
+        want, seq_a = timed(seg, False)
+        _, seq_b = timed(seg, False)
+        again, wall_b = timed(seg, True)
+        if launches != expect:
+            raise AssertionError(f"[multi] n = {n}: K1 launched {launches} "
+                                 f"times in segment_many, not {expect}")
+        for i, w in enumerate(want):
+            for g in (got[i], again[i]):
+                if "probs" in g or not (
+                        np.array_equal(g["class_map"], w["class_map"])
+                        and np.array_equal(g["mask_rgb"], w["mask_rgb"])):
+                    differ = float(np.mean(g["class_map"] != w["class_map"]))
+                    raise AssertionError(
+                        f"[multi] n = {n}, photo {i}: segment_many's class "
+                        f"map differs from segment_array's on {differ:.6%} "
+                        "of pixels")
+        if abs(sum(r["seconds"] for r in got) - got[-1]["completed_s"]) \
+                > 1e-6:
+            raise AssertionError("[multi] segment_many's seconds do not add "
+                                 "up to the last completion")
+        log(f"[multi] n = {n}: segment_many on Mesh([cuda:0] x {n}), K1 "
+            f"launches {launches} (expected {expect} = 5 x n x photos); "
+            f"{MANY_PHOTOS} class maps and masks equal segment_array's in "
+            f"both passes; completed_s "
+            f"{[round(r['completed_s'], 4) for r in got]} and "
+            f"{[round(r['completed_s'], 4) for r in again]}")
+        for name, walls in (("segment_many", (wall_a, wall_b)),
+                            ("segment_array one by one", (seq_a, seq_b))):
+            mean = sum(walls) / 2
+            log(f"[multi] n = {n}: {name}: total wall {walls[0]:.4f} s and "
+                f"{walls[1]:.4f} s for {MANY_PHOTOS} photos of "
+                f"{SLICE_HW[1]}x{SLICE_HW[0]} ({mp:.1f} MP), mean "
+                f"{mean / MANY_PHOTOS * 1e3:.2f} ms per photo = "
+                f"{mp / mean:.3f} MP/s ({card})")
+        log(f"[multi] n = {n}: segment_many takes "
+            f"{(wall_a + wall_b) / (seq_a + seq_b):.3f} of the one-by-one "
+            f"wall (timed many, one by one, one by one, many; {card})")
+        busy_ms, profiled = profiled_many(seg, photos[:3], device)
+        per_photo = (wall_a + wall_b) / 2 / MANY_PHOTOS * 1e3
+        log(f"[multi] n = {n}: profiled segment_many (3 photos): "
+            f"{busy_ms:.2f} ms per photo on the compute stream; the "
+            f"profiled run {profiled:.2f} ms per photo (idle share "
+            f"{1 - busy_ms / profiled:.3f}), the unprofiled run of "
+            f"{MANY_PHOTOS} {per_photo:.2f} ms (idle share "
+            f"{1 - busy_ms / per_photo:.3f})")
+        total += launches
+    return total
 
 
 def _set_dropout_0(model):
@@ -2670,7 +2833,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(dir=build_root) as workdir:
         t0 = time.perf_counter()
-        banded_launches = phase_multi_photo(device, workdir)
+        banded_launches, banded_many_launches = phase_multi_photo(
+            device, workdir, card)
         torch.cuda.empty_cache()
         ranks_launches = phase_multi_train(device, workdir, card)
         log(f"[multi] {time.perf_counter() - t0:.1f} s")
@@ -2686,6 +2850,7 @@ def main() -> int:
                 **{f"radius{r}_photo": n for r, n in radius_launches.items()},
                 "serve": serve_launches, "artifact": artifact_launches,
                 "wide_photo": wide_launches, "banded_photo": banded_launches,
+                "banded_many": banded_many_launches,
                 **{k: v for k, v in zoo.items() if k.endswith("_photo")}}
     k2_paths = [{"train": n, "remat_train": remat_launches[i],
                  "resume_train": resume_launches[i],

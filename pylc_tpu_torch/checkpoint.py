@@ -3,17 +3,21 @@
 Port of ``pylc_tpu/checkpoint.py``.  ``RunningLoss`` is the same code,
 with the same ``losses.json``, which in a process group rank 0 alone
 touches (``owner``).  ``Checkpoint`` keeps the atomic writes
-(tmp + ``os.replace``) but writes torch files:
+(tmp + ``os.replace``) and writes, at every save, both packages' files:
 
+  - ``checkpoint.ckpt`` + ``.meta``, the JAX package's resumable layout
+    (``convert.save_ckpt_checkpoint``: the weights, the optimizer's
+    moments and step counts, the schedule's position), which that
+    package's ``train --resume`` picks up; and, for the best model by
+    validation Dice, ``<model_id>.ckpt`` + ``.meta``
+    (``convert.save_ckpt_model``), which its ``test`` reads.  Writing
+    them needs ``msgpack``: ``trainer.train`` checks for it before it
+    starts;
   - ``checkpoint.pth``: {epoch, iter, model, optimizer, scheduler, meta},
-    written at every validation, for ``--resume``.  ``--resume`` also
-    takes the JAX package's resumable ``checkpoint.ckpt`` in the model
-    directory (``convert.load_ckpt_checkpoint``: the weights, the
-    optimizer's moments and step counts, the schedule's position), so a
-    run the JAX package started carries on here.  Where both files are
-    there, the one written last is the run's newest state and is taken.
-    A run without ``--resume`` removes only ``checkpoint.pth``, as the JAX
-    package's removes only its own file;
+    the port's own resumable state, with the scheduler's exact state (an
+    SGD run at momentum 0 keeps no momentum buffer in torch, so its
+    ``.ckpt`` trace is zeros, or the trace it was loaded with, where optax
+    keeps the last gradient; no later update reads it);
   - ``<model_id>.pth``: {'model': state_dict, 'meta': cfg.to_meta()}, the
     best model by validation Dice.  For a DeepLab on ResNet101 or Xception
     this is the reference schema, which both the port's and the JAX
@@ -21,19 +25,30 @@ touches (``owner``).  ``Checkpoint`` keeps the atomic writes
     other models, whose file has the same ``meta`` and the port's own key
     names (``convert.module_map``), and loads through
     ``convert.load_pth_model`` with the config the model was built from.
+
+A save writes the ``.ckpt`` files first and the ``.pth`` files last, so
+that ``checkpoint.pth`` is never older than the ``checkpoint.ckpt`` of
+the same save.  ``--resume`` takes ``checkpoint.ckpt`` only where it is
+strictly newer than ``checkpoint.pth`` (the JAX package wrote it after
+this package's last save, or there is no ``.pth``); at equal times it
+takes ``checkpoint.pth``.  A run without ``--resume`` removes only
+``checkpoint.pth``, as the JAX package's removes only its own file; its
+first save overwrites any ``checkpoint.ckpt`` left behind.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import time
 from typing import Any, Dict, Optional
 
 import torch
 import torch.nn as nn
 
 from pylc_tpu_torch.config import Config
-from pylc_tpu_torch.convert import load_ckpt_checkpoint
+from pylc_tpu_torch.convert import (load_ckpt_checkpoint,
+                                    save_ckpt_checkpoint, save_ckpt_model)
 
 
 def _atomic_write(path: str, data: bytes):
@@ -63,10 +78,20 @@ class Checkpoint:
         self.jax_checkpoint_file = os.path.join(self.model_dir,
                                                 "checkpoint.ckpt")
         self.model_file = os.path.join(self.model_dir, model_id + ".pth")
+        self.jax_model_file = os.path.join(self.model_dir,
+                                           model_id + ".ckpt")
+        #: seconds of each save: {'ckpt': the JAX layout, 'pth': torch's}
+        self.save_seconds = []
 
     def save(self, model: nn.Module, optimizer: torch.optim.Optimizer,
              scheduler: torch.optim.lr_scheduler.LRScheduler, cfg: Config,
              epoch: int, iteration: int, is_best: bool = False):
+        t0 = time.perf_counter()
+        save_ckpt_checkpoint(self.jax_checkpoint_file, cfg, model, optimizer,
+                             scheduler, epoch, iteration)
+        if is_best:
+            save_ckpt_model(model, cfg, self.jax_model_file)
+        t1 = time.perf_counter()
         weights = _cpu_state_dict(model)
         meta = cfg.to_meta()
         _atomic_save({"epoch": epoch, "iter": iteration, "model": weights,
@@ -75,23 +100,26 @@ class Checkpoint:
                      self.checkpoint_file)
         if is_best:
             _atomic_save({"model": weights, "meta": meta}, self.model_file)
+        self.save_seconds.append({"ckpt": t1 - t0,
+                                  "pth": time.perf_counter() - t1})
 
     def load(self, model: nn.Module, optimizer: torch.optim.Optimizer,
              scheduler: torch.optim.lr_scheduler.LRScheduler, cfg: Config
              ) -> Optional[Dict[str, Any]]:
-        """Restore the newer of ``checkpoint.pth`` and the JAX package's
-        ``checkpoint.ckpt`` (by modification time; ``cfg`` is the model's
-        and the optimizer's config) into ``model``, ``optimizer`` and
-        ``scheduler`` in place.  Returns {'epoch', 'iter', 'meta', 'file'},
-        or None if there is neither."""
-        found = [p for p in (self.checkpoint_file, self.jax_checkpoint_file)
-                 if os.path.exists(p)]
-        if not found:
-            return None
-        if max(found, key=os.path.getmtime) == self.jax_checkpoint_file:
+        """Restore ``checkpoint.pth``, or the JAX package's
+        ``checkpoint.ckpt`` where it is strictly newer by modification time
+        or alone (``cfg`` is the model's and the optimizer's config), into
+        ``model``, ``optimizer`` and ``scheduler`` in place.  Returns
+        {'epoch', 'iter', 'meta', 'file'}, or None if there is neither."""
+        pth = os.path.exists(self.checkpoint_file)
+        if os.path.exists(self.jax_checkpoint_file) and (not pth or (
+                os.path.getmtime(self.jax_checkpoint_file)
+                > os.path.getmtime(self.checkpoint_file))):
             return dict(load_ckpt_checkpoint(
                 self.jax_checkpoint_file, cfg, model, optimizer, scheduler),
                 file=self.jax_checkpoint_file)
+        if not pth:
+            return None
         device = next(model.parameters()).device
         payload = torch.load(self.checkpoint_file, map_location=device,
                              weights_only=False)
@@ -104,8 +132,8 @@ class Checkpoint:
     def reset(self):
         """A run that does not resume removes its own resumable state.  The
         JAX package's ``checkpoint.ckpt`` stays, as that package's reset
-        leaves ``checkpoint.pth``; this run's first ``save`` is newer, so
-        a later ``--resume`` takes this run's file."""
+        leaves ``checkpoint.pth``; this run's first ``save`` overwrites
+        it."""
         if os.path.exists(self.checkpoint_file):
             os.remove(self.checkpoint_file)
 

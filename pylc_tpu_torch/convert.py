@@ -42,6 +42,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import struct
 import sys
 import types
 from collections import OrderedDict
@@ -728,7 +729,8 @@ def load_pth_model(model_path: str, base_cfg: Optional[Config] = None
 CKPT_ARRAY_EXT = 1  # flax's msgpack extension type of an ndarray
 
 
-def _msgpack():
+def require_msgpack():
+    """The ``msgpack`` module, or an ImportError that names it."""
     try:
         import msgpack
     except ImportError as e:
@@ -743,7 +745,7 @@ def _read_ckpt_trees(path: str, keys: Sequence[str] = ("params",)
     """flax's ``serialization.to_bytes`` without flax: plain msgpack whose
     arrays are extension type 1, each msgpack of (shape, dtype name,
     bytes).  The top level must hold ``keys``."""
-    msgpack = _msgpack()
+    msgpack = require_msgpack()
 
     def ext_hook(code, data):
         if code != CKPT_ARRAY_EXT:
@@ -767,23 +769,49 @@ def _read_ckpt_trees(path: str, keys: Sequence[str] = ("params",)
     return tree
 
 
+def _sized(codes: Tuple[int, int, int], n: int) -> bytes:
+    """A msgpack header of length ``n``: ``codes`` are the markers of its
+    8-, 16- and 32-bit length forms (bin: 0xc4-0xc6, ext: 0xc7-0xc9)."""
+    for code, fmt, top in zip(codes, (">B", ">H", ">I"),
+                              (0xff, 0xffff, 0xffffffff)):
+        if n <= top:
+            return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError(f"{n} bytes do not fit one msgpack object")
+
+
 def _write_ckpt(path: str, payload: Mapping, cfg: Config):
-    """``payload`` as flax's msgpack (numpy arrays as extension type 1),
-    and ``cfg``'s meta beside it, each written atomically."""
-    msgpack = _msgpack()
+    """``payload`` as flax's msgpack (numpy arrays as extension type 1,
+    each the msgpack of (shape, dtype name, bytes)), streamed into the
+    file piece by piece with each array's bytes written from the array
+    itself, and ``cfg``'s meta beside it, each written atomically.  The
+    payload is nested dicts of str keys, numpy arrays and Python ints."""
+    packer = require_msgpack().Packer(use_bin_type=True)
 
-    def pack(x):
-        if isinstance(x, np.ndarray):
-            return msgpack.ExtType(CKPT_ARRAY_EXT, msgpack.packb(
-                (x.shape, x.dtype.name, x.tobytes("C")), use_bin_type=True))
-        raise TypeError(f"cannot pack {type(x).__name__}")
+    def write(f, x):
+        if isinstance(x, dict):
+            f.write(packer.pack_map_header(len(x)))
+            for k, v in x.items():
+                f.write(packer.pack(str(k)))
+                write(f, v)
+        elif isinstance(x, np.ndarray):
+            x = np.asarray(x, order="C")  # keeps a 0-d array 0-d
+            head = (packer.pack_array_header(3) + packer.pack(list(x.shape))
+                    + packer.pack(x.dtype.name)
+                    + _sized((0xc4, 0xc5, 0xc6), x.nbytes))
+            f.write(_sized((0xc7, 0xc8, 0xc9), len(head) + x.nbytes)
+                    + bytes([CKPT_ARRAY_EXT]) + head)
+            f.write(x.reshape(-1).view(np.uint8))
+        elif type(x) is int:
+            f.write(packer.pack(x))
+        else:
+            raise TypeError(f"cannot pack {type(x).__name__}")
 
-    blob = msgpack.packb(payload, default=pack, strict_types=True)
-    for target, data in ((path, blob),
-                         (path + ".meta", cfg.to_meta_json().encode())):
-        with open(target + ".tmp", "wb") as f:
-            f.write(data)
-        os.replace(target + ".tmp", target)
+    with open(path + ".tmp", "wb") as f:
+        write(f, payload)
+    os.replace(path + ".tmp", path)
+    with open(path + ".meta.tmp", "w") as f:
+        f.write(cfg.to_meta_json())
+    os.replace(path + ".meta.tmp", path + ".meta")
 
 
 def _read_meta(path: str) -> Optional[Dict]:
@@ -818,7 +846,7 @@ def save_ckpt_model(model: nn.Module, cfg: Config, path: str) -> str:
     """Write ``model`` as a best-model ``.ckpt`` with its ``.meta``, which
     ``pylc_tpu.checkpoint.load_model_file`` and the JAX package's ``test``
     read.  No optimizer state (``save_ckpt_checkpoint`` writes one)."""
-    _msgpack()  # before the trees: without it nothing can be written
+    require_msgpack()  # before the trees: without it nothing is written
     params, stats = jax_trees_from_state_dict(model.state_dict(), cfg)
     _write_ckpt(path, {"params": params, "batch_stats": stats}, cfg)
     return path
@@ -885,7 +913,7 @@ def save_ckpt_checkpoint(path: str, cfg: Config, model: nn.Module,
     """Write a resumable ``checkpoint.ckpt`` with its ``.meta`` in the
     JAX package's layout, which ``pylc_tpu.checkpoint.Checkpoint.load``
     restores into a state of ``cfg`` and its trainer resumes."""
-    _msgpack()
+    require_msgpack()
     _write_ckpt(path, checkpoint_to_jax(cfg, model, optimizer, scheduler,
                                         epoch, iteration), cfg)
     return path

@@ -15,15 +15,16 @@ current stream, and only the class-map copy to the host waits for them.
     -> uint8 argmax -> one copy of the class map to the host
   -> palette colourize on the host (``native.colourize``).
 
-``segment_many`` pipelines a sequence of same-shape photos on a CUDA
-device (photo k + 1's upload on a copy stream from pinned memory while
-photo k computes, the class map's download without blocking the host, the
-colourize of photo k on a worker thread while the main thread launches
-photo k + 1); eager PyTorch overlaps none of this by itself.
-
 On a mesh of devices (``Segmenter(mesh=...)``, ``parallel/``) the photo
-goes through in row bands, one per device, and ``segment_many`` takes
-the photos one after the other.
+goes through in row bands, one per device: each band is uploaded to its
+device, which forwards and stitches it, and the CRF runs band by band.
+
+``segment_many`` pipelines a sequence of same-shape photos on CUDA, on one
+device or on a mesh (photo k + 1's upload, every band of it on its
+device's copy stream from pinned memory, while photo k computes; the
+class map's download without blocking the host; the colourize of photo k
+on a worker thread while the main thread launches photo k + 1); eager
+PyTorch overlaps none of this by itself.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from __future__ import annotations
 import copy
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -54,8 +55,9 @@ PROBS_BF16_BYTES = 256 * 2 ** 20
 
 STAGES = ("h2d", "forward_stitch", "crf", "d2h", "colourize")
 
-#: pinned host buffers ``segment_many`` rotates, for the photos and for
-#: the class maps: one in a copy while the host fills or reads the other
+#: pinned host buffers ``segment_many`` rotates, for the photos (all of a
+#: photo's bands in one) and for the class maps: one in a copy while the
+#: host fills or reads the other
 MANY_BUFFERS = 2
 
 
@@ -76,7 +78,9 @@ class Segmenter:
     row-banded with K1 on every band where ``can_shard_crf`` holds, else
     on the first device; these are the JAX package's geometry rules, and
     ``mesh_routes`` names the route a photo takes.  The class map and the
-    canvas come back on the first device."""
+    canvas come back on the first device.  ``segment_many`` pipelines its
+    photos on a CUDA mesh as on one CUDA device: each distinct device
+    uploads its bands on a copy stream of its own."""
 
     def __init__(self, cfg: Config, predict_fn: Callable,
                  device: torch.device, batch_size: int = 16,
@@ -150,30 +154,63 @@ class Segmenter:
                 can_shard_crf(H, params, n) else "one-device"
         return routes
 
-    def _launch_mesh(self, img: np.ndarray, stride: int,
-                     mark: Callable[[str], None]):
-        """``_launch`` over the mesh: the bands (or the photo) to their
-        devices, the forward and stitch, the CRF, the argmax on the first
+    def _layout(self, H: int, W: int, stride: int
+                ) -> Tuple[Optional[BI.BandPlan], List[torch.device]]:
+        """How an H x W photo goes to the devices: (plan, devices), the
+        row bands of ``plan`` (``BI.plan_bands``) one to each device, or
+        with no plan the whole photo to ``devices[0]`` (one device, or
+        the mesh's tile-split route)."""
+        if self.mesh is None:
+            return None, [self.device]
+        if self.mesh_routes(H, W, stride)["forward_stitch"] == "tile-split":
+            return None, [self.mesh.devices[0]]
+        return (BI.plan_bands(H, W, self.cfg.tile_size, stride,
+                              self.mesh.size), list(self.mesh.devices))
+
+    def _host_parts(self, img: np.ndarray, stride: int,
+                    out: Optional[np.ndarray] = None) -> np.ndarray:
+        """[n, h, W, C]: what device i of ``_layout`` uploads is part i,
+        written into ``out`` where it is given."""
+        plan, _ = self._layout(*img.shape[:2], stride)
+        if plan is not None:
+            return BI.split_bands(img, plan, out)
+        if out is None:
+            return np.ascontiguousarray(img)[None]
+        np.copyto(out[0], img)
+        return out
+
+    def _upload(self, img: np.ndarray, stride: int) -> List[torch.Tensor]:
+        """One [H, W, C] photo onto the devices: its parts
+        (``_host_parts``), each on its device of ``_layout``."""
+        _, devices = self._layout(*img.shape[:2], stride)
+        parts = self._host_parts(img, stride)
+        return [torch.from_numpy(p).to(d, non_blocking=True)
+                for p, d in zip(parts, devices)]
+
+    def _compute_parts(self, parts: Sequence[torch.Tensor], H: int, W: int,
+                       stride: int, mark: Callable[[str], None]):
+        """Enqueue the device work for one H x W photo from its parts
+        (``_upload``) -> (class map, canvas), both on the (first) device.
+        On a mesh: the forward and stitch (of each band on its device, or
+        of the tile batch split over the devices), the CRF (banded or on
+        the first device, per ``mesh_routes``), the argmax on the first
         device."""
+        if self.mesh is None:
+            return self._compute(parts[0], stride, mark)
         mesh, dev0, tile = self.mesh, self.mesh.devices[0], self.cfg.tile_size
-        H, W = img.shape[:2]
         n_rows, n_cols = grid_dims(W, H, tile, stride)
         dtype = self._probs_dtype(n_rows * n_cols)
         routes = self.mesh_routes(H, W, stride)
-        if routes["forward_stitch"] == "banded":
-            plan = BI.plan_bands(H, W, tile, stride, mesh.size)
-            bands = shard_batch(mesh, BI.split_bands(img, plan))
-            bands = [b[0] for b in bands]
-            mark("h2d")
-            canvas = BI.run_banded(bands, lambda t: self._tile_probs(t, dtype),
+        plan, _ = self._layout(H, W, stride)
+        if plan is not None:
+            canvas = BI.run_banded(parts, lambda t: self._tile_probs(t, dtype),
                                    n_cols, tile, stride, mesh, plan)
-            guide = BI.banded_guide(bands, plan)
+            guide = BI.banded_guide(parts, plan)
         else:
-            guide = torch.from_numpy(np.ascontiguousarray(img)).to(dev0)
-            mark("h2d")
-            parts = shard_batch(mesh, unfold_tiles(guide, tile, stride))
+            guide = parts[0]
+            tiles = shard_batch(mesh, unfold_tiles(guide, tile, stride))
             probs = torch.cat([self._tile_probs(t, dtype).to(dev0)
-                               for t in parts])
+                               for t in tiles])
             canvas = [stitch_probs(probs, n_rows, n_cols, tile, stride)]
         mark("forward_stitch")
         if routes.get("crf") == "banded":
@@ -204,13 +241,11 @@ class Segmenter:
         on the device, megapixels); nothing here waits for the device."""
         if img.ndim == 2:
             img = img[..., None]
-        if self.mesh is not None:
-            class_map, canvas = self._launch_mesh(img, stride, mark)
-        else:
-            dev = torch.from_numpy(np.ascontiguousarray(img)).to(self.device)
-            mark("h2d")
-            class_map, canvas = self._compute(dev, stride, mark)
-        return class_map, canvas, img.shape[0] * img.shape[1] / 1e6
+        H, W = img.shape[:2]
+        parts = self._upload(img, stride)
+        mark("h2d")
+        class_map, canvas = self._compute_parts(parts, H, W, stride, mark)
+        return class_map, canvas, H * W / 1e6
 
     def _fetch(self, class_map: torch.Tensor, canvas: torch.Tensor,
                megapixels: float, mark: Callable[[str], None]) -> Dict:
@@ -273,7 +308,7 @@ class Segmenter:
     def segment_many(self, imgs: Sequence[np.ndarray],
                      stride: Optional[int] = None) -> List[Dict]:
         """Segment a sequence of fitted images of one shape (a folder of
-        photos from one camera), pipelined on a CUDA device.
+        photos from one camera), pipelined on a CUDA device or mesh.
 
         Returns a list of dicts like ``segment_array``'s without 'probs':
         'class_map' and 'mask_rgb' (each equal to ``segment_array``'s: the
@@ -300,7 +335,7 @@ class Segmenter:
                     f"{imgs[0].dtype} — use segment_stream for mixed-shape "
                     "batches.")
         t0 = time.perf_counter()
-        if self.device.type == "cuda" and self.mesh is None:
+        if self.device.type == "cuda":
             results = self._many_pipelined(imgs, stride)
         else:
             results = []
@@ -317,42 +352,51 @@ class Segmenter:
         return out
 
     def _many_pipelined(self, imgs: List[np.ndarray], stride: int):
-        """``segment_many`` on a CUDA device -> [(result, host time of its
+        """``segment_many`` on CUDA -> [(result, host time of its
         completion)].
 
-        Per photo k the main thread copies the photo into a pinned buffer
-        and starts its upload on a copy stream, then launches photo
-        k - 1's compute on the current stream behind the upload's event,
-        then the class map's copy into a pinned buffer with an event of
-        its own; a worker thread waits for that event, copies the class
-        map out and colourizes it.  A pinned buffer is rewritten only
-        after the event (photos) or the worker (class maps) that read it
-        last."""
-        device = self.device
-        megapixels = imgs[0].shape[0] * imgs[0].shape[1] / 1e6
-        compute = torch.cuda.current_stream(device)
-        copy = torch.cuda.Stream(device)
+        Per photo k the main thread writes the photo's parts (the photo,
+        or its row bands on a mesh: ``_layout``) into a pinned buffer and
+        starts each part's upload on its device's copy stream, then
+        launches photo k - 1's compute on the devices' current streams,
+        each behind the upload events of its own parts, then the class
+        map's copy from the first device into a pinned buffer with an
+        event of its own; a worker thread waits for that event, copies the
+        class map out and colourizes it.  A pinned buffer is rewritten only
+        after the events (photos) or the worker (class maps) that read it
+        last.  Every copy between devices inside the compute (halos, the
+        gather onto the first device) runs on the devices' current
+        streams, which PyTorch orders against each other."""
+        H, W = imgs[0].shape[:2]
+        megapixels = H * W / 1e6
+        plan, devices = self._layout(H, W, stride)
+        computes = {d: torch.cuda.current_stream(d) for d in devices}
+        copies = {d: torch.cuda.Stream(d) for d in computes}
+        shape = (1, H, W) if plan is None else (plan.n_dev, plan.band_h, W)
         slots = min(MANY_BUFFERS, len(imgs))
-        pinned_in = [torch.empty(imgs[0].shape,
+        pinned_in = [torch.empty(shape + imgs[0].shape[2:],
                                  dtype=torch.from_numpy(imgs[0][:0]).dtype,
                                  pin_memory=True) for _ in range(slots)]
-        pinned_out = [torch.empty(imgs[0].shape[:2], dtype=torch.uint8,
-                                  pin_memory=True) for _ in range(slots)]
-        uploaded: List[Optional[torch.cuda.Event]] = [None] * slots
+        pinned_out = [torch.empty((H, W), dtype=torch.uint8, pin_memory=True)
+                      for _ in range(slots)]
+        uploaded: List[List[torch.cuda.Event]] = [[] for _ in range(slots)]
 
-        def upload(k: int) -> torch.Tensor:
+        def upload(k: int) -> List[torch.Tensor]:
             slot = k % slots
-            if uploaded[slot] is not None:
-                uploaded[slot].synchronize()  # the buffer's last copy
-            np.copyto(pinned_in[slot].numpy(), imgs[k])
-            with torch.cuda.stream(copy):
-                dev = pinned_in[slot].to(device, non_blocking=True)
-                uploaded[slot] = torch.cuda.Event()
-                uploaded[slot].record(copy)
-            # allocated on the copy stream, read on the compute stream: the
-            # allocator must not hand it out again before those reads end
-            dev.record_stream(compute)
-            return dev
+            for done in uploaded[slot]:
+                done.synchronize()  # the buffer's last copies
+            self._host_parts(imgs[k], stride, out=pinned_in[slot].numpy())
+            parts, uploaded[slot] = [], []
+            for part, dev in zip(pinned_in[slot], devices):
+                with torch.cuda.stream(copies[dev]):
+                    parts.append(part.to(dev, non_blocking=True))
+                    uploaded[slot].append(torch.cuda.Event())
+                    uploaded[slot][-1].record(copies[dev])
+                # allocated on the copy stream, read on the compute stream:
+                # the allocator must not hand it out again before those
+                # reads end
+                parts[-1].record_stream(computes[dev])
+            return parts
 
         def finish(slot: int, fetched: torch.cuda.Event):
             fetched.synchronize()
@@ -363,20 +407,22 @@ class Segmenter:
 
         futures = []
         with ThreadPoolExecutor(max_workers=1) as worker:
-            dev = upload(0)
+            parts = upload(0)
             for k in range(len(imgs)):
                 slot = k % slots
                 ready = uploaded[slot]
                 nxt = upload(k + 1) if k + 1 < len(imgs) else None
-                compute.wait_event(ready)
-                class_map, _ = self._compute(dev, stride, _no_mark)
+                for dev, done in zip(devices, ready):
+                    computes[dev].wait_event(done)
+                class_map, _ = self._compute_parts(parts, H, W, stride,
+                                                   _no_mark)
                 if k >= slots:
                     futures[k - slots].result()  # frees pinned_out[slot]
                 pinned_out[slot].copy_(class_map, non_blocking=True)
                 fetched = torch.cuda.Event()
-                fetched.record(compute)
+                fetched.record(computes[devices[0]])
                 futures.append(worker.submit(finish, slot, fetched))
-                dev = nxt
+                parts = nxt
             return [f.result() for f in futures]
 
     def segment_stream(self, items, stride: Optional[int] = None):

@@ -21,7 +21,7 @@ tile-split program otherwise.
 
 from __future__ import annotations
 
-from typing import Callable, List, NamedTuple, Sequence
+from typing import Callable, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -58,17 +58,21 @@ def can_band(H: int, W: int, tile: int, stride: int, n_dev: int) -> bool:
     return can_shard(n_rows, tile, stride, n_dev)
 
 
-def split_bands(img: np.ndarray, plan: BandPlan) -> np.ndarray:
+def split_bands(img: np.ndarray, plan: BandPlan,
+                out: Optional[np.ndarray] = None) -> np.ndarray:
     """[H, W, C] -> [n_dev, band_h, W, C] overlapping row bands; the
     grid's padding rows at the bottom are zero (their tiles weigh 0 in the
-    stitch).  Band d is what device d uploads."""
+    stitch).  Band d is what device d uploads.  ``out``: an array of that
+    shape to write the bands into (a pinned buffer that is used again),
+    else a new one."""
     n_dev, _, _, nL, band_h, H, W, stride = plan
-    out = np.zeros((n_dev, band_h, W, img.shape[2]), img.dtype)
+    if out is None:
+        out = np.empty((n_dev, band_h, W, img.shape[2]), img.dtype)
     for d in range(n_dev):
         top = d * nL * stride
         rows = min(max(H - top, 0), band_h)
-        if rows > 0:
-            out[d, :rows] = img[top:top + rows]
+        out[d, :rows] = img[top:top + rows]
+        out[d, rows:] = 0
     return out
 
 

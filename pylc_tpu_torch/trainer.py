@@ -7,8 +7,9 @@ default path trains from scratch, a path or flag the user gave must
 exist), validation at the first epoch and after each epoch with the
 best model gated on validation Dice, a resume that completes exactly
 ``n_epochs`` (DEVIATIONS F3) from the port's ``checkpoint.pth`` or the JAX
-package's ``checkpoint.ckpt``, and metrics pulled to the host every
-``report`` steps.  On several ranks (``parallel/mesh.py``) each rank
+package's ``checkpoint.ckpt``, both packages' checkpoint files at every
+validation (``checkpoint.Checkpoint``), and metrics pulled to the host
+every ``report`` steps.  On several ranks (``parallel/mesh.py``) each rank
 trains on its shard of the train split under DDP, validation is sharded
 when the split has a row for every rank, and rank 0 alone writes.
 """
@@ -24,6 +25,7 @@ import torch
 
 from pylc_tpu_torch.checkpoint import Checkpoint, RunningLoss
 from pylc_tpu_torch.config import Config
+from pylc_tpu_torch.convert import require_msgpack
 from pylc_tpu_torch.db.database import TileDB
 from pylc_tpu_torch.db.dataset import TileDataset
 from pylc_tpu_torch.device import resolve_device
@@ -88,7 +90,12 @@ def train(cfg: Config, db: Union[str, Dict], n_devices: Optional[int] = None,
     ``--multihost``) each rank is one of the JAX package's processes: it
     reads its shard of the train split, feeds its rows of the global
     batch, and only rank 0 writes checkpoints and ``losses.json``.
-    Returns a summary dict."""
+    Returns a summary dict ('save_s': the seconds of each checkpoint
+    save, by format, on rank 0).
+
+    Every save writes the JAX package's ``.ckpt`` files too, which needs
+    ``msgpack``: without it this raises before any other work."""
+    require_msgpack()
     world = world_size()
     if n_devices is not None and n_devices > 1 and not in_group():
         mesh = get_mesh(n_devices, str(device or "cuda"))
@@ -241,6 +248,7 @@ def train(cfg: Config, db: Union[str, Dict], n_devices: Optional[int] = None,
         "steps": it,
         "best_dice": loss.best_dice,
         "wall_s": time.time() - t_start,
+        "save_s": ckpt.save_seconds,
         "model": model,
         "config": cfg,
     }

@@ -48,6 +48,7 @@ from pylc_tpu_torch.models.registry import build_model
 from pylc_tpu_torch.parallel import mesh as pmesh
 from pylc_tpu_torch.train_state import (init_model, make_eval_step,
                                         make_optimizer, make_train_step)
+from test_torch_trainer import drop_jax_files
 
 torch.set_num_threads(1)
 
@@ -360,8 +361,9 @@ def test_trainer_ranks_match_one_process(tmp_path):
     np.testing.assert_allclose(out[0]["best_dice"], one["best_dice"],
                                rtol=LOSS_RTOL)
     mid = out[0]["model_id"]
-    assert sorted(os.listdir(tmp_path / "save0" / mid)) == \
-        ["checkpoint.pth", "losses.json", f"{mid}.pth"]
+    assert sorted(os.listdir(tmp_path / "save0" / mid)) == sorted([
+        "checkpoint.ckpt", "checkpoint.ckpt.meta", "checkpoint.pth",
+        "losses.json", f"{mid}.ckpt", f"{mid}.ckpt.meta", f"{mid}.pth"])
     assert not os.path.exists(tmp_path / "save1" / mid) or \
         os.listdir(tmp_path / "save1" / mid) == []
 
@@ -467,6 +469,7 @@ def test_cli_train_spawns_ranks_on_the_cpu(tmp_path, monkeypatch, capsys):
     printed = capsys.readouterr().out
     assert "WORLD_SIZE is set but --multihost was not given" in printed
     assert "Training done: 1 steps" in printed
+    drop_jax_files(tmp_path)
 
 
 def test_cli_test_runs_on_a_mesh_on_the_cpu(tmp_path, monkeypatch, capsys):

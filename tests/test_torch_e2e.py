@@ -69,8 +69,9 @@ def test_train_and_infer_e2e(tmp_path):
     assert summary["steps"] == 5 and np.isfinite(summary["best_dice"])
     model_dir = os.path.join(cfg.save_dir, summary["model_id"])
     pth = os.path.join(model_dir, summary["model_id"] + ".pth")
-    # the resume checkpoint (AdamW's state, ~0.5 GB) is not needed here
+    # the resume checkpoints (AdamW's state, ~0.7 GB each) are not needed
     os.remove(os.path.join(model_dir, "checkpoint.pth"))
+    os.remove(os.path.join(model_dir, "checkpoint.ckpt"))
 
     photo = os.path.join(photos[0], "p0.jpg")
     mask = os.path.join(photos[1], "p0.png")

@@ -129,6 +129,8 @@ def test_in_memory_train_runs_without_jax_flax_h5py(tmp_path):
                          timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "ok 4"
+    from test_torch_trainer import drop_jax_files
+    drop_jax_files(tmp_path)
 
 
 def test_in_memory_data_path_runs_without_jax_flax_h5py(tmp_path):

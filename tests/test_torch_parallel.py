@@ -412,3 +412,65 @@ def test_mesh_segmenter_refusals(port_model):
     with pytest.raises(ValueError, match="first device"):
         Segmenter(cfg, predict, torch.device("cpu"),
                   mesh=Mesh(["cuda:0", "cpu"]))
+
+
+def test_mesh_segment_many_matches_jax_mesh_segment_many(weights, photo,
+                                                         port_model):
+    """Both packages' ``segment_many`` on a 2-device mesh, 3 photos with
+    the CRF: each class map against the JAX package's within
+    test_mesh_segmenter_matches_jax_mesh_segmenter's tolerance, and equal,
+    with its mask, to the port's ``segment_array`` on the same mesh, whose
+    canvas is held to the JAX package's at atol 1e-4.  Here the mesh is
+    CPU entries, which take the plain loop: the pinned, streamed pipeline
+    runs only on the card, where ``chip_smoke.py`` ``[multi]`` holds it to
+    ``segment_array`` on ``Mesh([cuda:0] * n)``."""
+    cfg, state, _ = weights
+    photos = [photo, np.ascontiguousarray(photo[::-1]),
+              np.ascontiguousarray(photo[:, ::-1])]
+    jseg = JaxSegmenter(cfg, state,
+                        jax_make_predict(cfg, jax_build_model(cfg)),
+                        batch_size=16, crf=jax_make_crf(cfg, **CRF),
+                        mesh=jax_get_mesh(2))
+    seg = _segmenter(port_model, 2)
+    want = jseg.segment_many(photos, STRIDE)
+    got = seg.segment_many(photos, STRIDE)
+    assert len(got) == len(want) == 3
+    for img, g, w in zip(photos, got, want):
+        assert "probs" not in g
+        differ = np.mean(g["class_map"] != np.asarray(w["class_map"]))
+        assert differ <= 1e-3, f"class maps differ on {differ:.4%} of pixels"
+        one = seg.segment_array(img, STRIDE)
+        np.testing.assert_array_equal(g["class_map"], one["class_map"])
+        np.testing.assert_array_equal(g["mask_rgb"], one["mask_rgb"])
+        np.testing.assert_allclose(
+            one["probs"].numpy(),
+            np.asarray(jseg.segment_array(img, STRIDE)["probs"]), atol=1e-4)
+    assert sum(r["seconds"] for r in got) == pytest.approx(
+        got[-1]["completed_s"])
+
+
+@pytest.mark.parametrize("route", ["banded", "tile-split"])
+def test_mesh_upload_then_compute_is_segment_array(port_model, photo,
+                                                   monkeypatch, route):
+    """The mesh path in its two halves: the upload puts the row bands on
+    their devices (banded) or the photo on the first device (tile-split),
+    and the compute on those parts gives ``segment_array``'s class map
+    and canvas exactly."""
+    if route == "tile-split":
+        monkeypatch.setattr(BI, "can_band", lambda *a: False)
+    seg = _segmenter(port_model, 3)
+    H, W = photo.shape[:2]
+    assert seg.mesh_routes(H, W, STRIDE)["forward_stitch"] == route
+    parts = seg._upload(photo, STRIDE)
+    if route == "banded":
+        plan = BI.plan_bands(H, W, TILE, STRIDE, 3)
+        np.testing.assert_array_equal(torch.stack(parts).numpy(),
+                                      BI.split_bands(photo, plan))
+    else:
+        assert len(parts) == 1
+        np.testing.assert_array_equal(parts[0].numpy(), photo)
+    class_map, canvas = seg._compute_parts(parts, H, W, STRIDE,
+                                           lambda name: None)
+    want = seg.segment_array(photo, STRIDE)
+    np.testing.assert_array_equal(class_map.numpy(), want["class_map"])
+    torch.testing.assert_close(canvas, want["probs"], rtol=0, atol=0)

@@ -1,7 +1,10 @@
 """The optimizer state across the ``.ckpt`` bridge: a run the JAX package
 started resumes in the port with its moments, step counts and schedule
 position, and the port writes a ``checkpoint.ckpt`` that the JAX package
-resumes.
+resumes.  The port's trainer writes it, and the best model's ``.ckpt``,
+at every save, with no call of ``convert``: the JAX package restores a
+port run and reads its best model, and the port resumes its own run from
+``checkpoint.pth``.
 
 The tree mapping (``convert.optimizer_from_jax`` / ``optimizer_to_jax``)
 is held bit for bit on DeepLab/MobileNetV2, whose two parameter groups
@@ -22,6 +25,8 @@ parameters by more than the noise."""
 
 import json
 import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -401,3 +406,125 @@ def test_resume_takes_the_newer_checkpoint(tmp_path, newer):
     assert restored["file"] == os.path.join(ckpt.model_dir, newer)
     want = {"checkpoint.pth": (3, 6), "checkpoint.ckpt": (1, 0)}[newer]
     assert (restored["epoch"], restored["iter"]) == want
+
+
+def _port_run_db(seed=9):
+    rng = np.random.default_rng(seed)
+    return {"img": rng.integers(0, 256, (6, 3, 32, 32), dtype=np.uint8),
+            "mask": rng.integers(0, 9, (6, 32, 32), dtype=np.uint8),
+            "meta": Config().replace(tile_size=32, id="_db_port").to_meta()}
+
+
+@pytest.mark.parametrize("optim", ["adam", "sgd"])
+def test_jax_package_reads_a_port_training_run(tmp_path, capsys, optim):
+    """``trainer.train`` (2 epochs of SPE steps) writes the JAX package's
+    files beside its own, with no call of ``convert``: the JAX
+    ``Checkpoint.load`` restores the port's epoch, step, every parameter
+    and statistic and the whole optimizer tree bit for bit against the
+    port's ``checkpoint.pth``; ``load_model_file`` reads the best model,
+    and the JAX Segmenter on it agrees with the port's on ``<id>.pth``
+    within tests/test_torch_infer.py's tolerance.  Then, with both
+    checkpoints' modification times set equal, the port's ``--resume``
+    takes its own ``checkpoint.pth``."""
+    from pylc_tpu.checkpoint import load_model_file
+    from pylc_tpu.infer import Segmenter as JaxSegmenter
+    from pylc_tpu.train_state import make_predict as jax_make_predict
+    from pylc_tpu_torch.infer import Segmenter
+    from pylc_tpu_torch.tester import load_model
+
+    kw = dict(UNET, **_optim_kw(optim, 1.0), shuffle=False,
+              partition=2.5 / 6, save_dir=str(tmp_path / "save"))
+    cfg = Config().replace(**kw, n_epochs=2)
+    summary = ttrainer.train(cfg, _port_run_db(), None, False, device="cpu")
+    mid = summary["model_id"]
+    model_dir = tmp_path / "save" / mid
+    assert sorted(os.listdir(model_dir)) == sorted([
+        "checkpoint.ckpt", "checkpoint.ckpt.meta", "checkpoint.pth",
+        f"{mid}.ckpt", f"{mid}.ckpt.meta", f"{mid}.pth", "losses.json"])
+    assert [set(s) for s in summary["save_s"]] == [{"ckpt", "pth"}] * 3
+
+    # the port's own state, from its own file
+    ckpt = Checkpoint(mid, str(tmp_path / "save"))
+    model = init_model(cfg, seed=3)
+    opt, sched = make_optimizer(cfg, model, SPE)
+    own = ckpt.load(model, opt, sched, cfg)
+    assert own["file"] == ckpt.checkpoint_file
+    assert (own["epoch"], own["iter"]) == (2, 2 * SPE)
+
+    jcfg = JaxConfig().replace(**kw, n_epochs=2)
+    template, _ = init_state(jcfg, jax.random.PRNGKey(1), SPE)
+    restored = JaxCheckpoint(mid, str(tmp_path / "save")).load(template)
+    assert restored["epoch"] == 2
+    assert int(restored["state"].step) == 2 * SPE
+    state = restored["state"]
+    params, stats = convert.jax_trees_from_state_dict(model.state_dict(),
+                                                      cfg)
+    _assert_trees_equal(_np_tree(state.params), params)
+    _assert_trees_equal(_np_tree(state.batch_stats), stats)
+    _assert_trees_equal(
+        _np_tree(serialization.to_state_dict(state.opt_state)),
+        convert.optimizer_to_jax(cfg, model, opt, sched))
+
+    # the best model in both testers
+    best, meta = load_model_file(str(model_dir / f"{mid}.ckpt"), template)
+    assert meta["arch"] == "unet"
+    photo = np.random.default_rng(4).integers(0, 256, (64, 96, 3),
+                                              dtype=np.uint8)
+    want = JaxSegmenter(jcfg, best, jax_make_predict(
+        jcfg, jax_build_model(jcfg)), batch_size=8).segment_array(photo, 16)
+    pcfg, _, predict = load_model(str(model_dir / f"{mid}.pth"), cfg,
+                                  torch.device("cpu"))
+    got = Segmenter(pcfg, predict, torch.device("cpu"),
+                    batch_size=8).segment_array(photo, 16)
+    np.testing.assert_allclose(got["probs"].numpy(),
+                               np.asarray(want["probs"]), atol=1e-4)
+    differ = np.mean(got["class_map"] != np.asarray(want["class_map"]))
+    assert differ <= 1e-3, f"class maps differ on {differ:.4%} of pixels"
+
+    # equal times: the port resumes from its own file
+    t = os.path.getmtime(ckpt.checkpoint_file)
+    for path in (ckpt.checkpoint_file, ckpt.jax_checkpoint_file):
+        os.utime(path, (t, t))
+    capsys.readouterr()
+    again = ttrainer.train(cfg.replace(n_epochs=3, resume_checkpoint=True),
+                           _port_run_db(), None, True, device="cpu")
+    assert f"Resumed from epoch 2 (iter {2 * SPE}) of " \
+        f"{ckpt.checkpoint_file}." in capsys.readouterr().out
+    assert again["epochs"] == 1 and again["steps"] == 3 * SPE
+
+
+def test_trainer_without_msgpack_fails_before_its_first_step(tmp_path):
+    """Every save writes the JAX package's ``.ckpt`` files, which need
+    msgpack: without it ``trainer.train`` raises by name before it opens
+    the DB, builds the model or takes a step, and writes nothing."""
+    code = (
+        "import sys\n"
+        "sys.modules['msgpack'] = None\n"
+        "import numpy as np\n"
+        "from pylc_tpu_torch import trainer\n"
+        "from pylc_tpu_torch.config import Config\n"
+        "def never(*a, **k):\n"
+        "    raise SystemExit('reached ' + never.what)\n"
+        "for name in ('TileDB', 'init_model', 'make_train_step'):\n"
+        "    setattr(trainer, name, never)\n"
+        "never.what = 'the run'\n"
+        "cfg = Config().replace(tile_size=32, save_dir=sys.argv[1])\n"
+        "db = {'img': np.zeros((6, 3, 32, 32), np.uint8),\n"
+        "      'mask': np.zeros((6, 32, 32), np.uint8),\n"
+        "      'meta': cfg.to_meta()}\n"
+        "try:\n"
+        "    trainer.train(cfg, db, verbose=False, device='cpu')\n"
+        "except ImportError as e:\n"
+        "    assert 'msgpack' in str(e), e\n"
+        "else:\n"
+        "    raise SystemExit('no ImportError')\n"
+        "print('ok')\n")
+    save = tmp_path / "save"
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code, str(save)], cwd=repo,
+                         env=dict(os.environ, PYTHONPATH=repo,
+                                  OMP_NUM_THREADS="1"),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr + out.stdout
+    assert out.stdout.strip() == "ok"
+    assert not save.exists()

@@ -8,6 +8,7 @@ both packages' testers."""
 import dataclasses
 import json
 import os
+import pathlib
 import subprocess
 import sys
 
@@ -28,6 +29,15 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TILE, N_TILES, BATCH = 32, 10, 2
 UNET = dict(unet_depth=3, unet_wf=3, input_size=64, output_size=24)
+
+
+def drop_jax_files(root):
+    """Remove the JAX package's ``.ckpt`` files that port training runs
+    wrote under ``root``, where a test reads none of them: ~0.9 GB for a
+    ResNet101 with AdamW, and pytest keeps every test's directory until
+    the whole run ends."""
+    for path in pathlib.Path(root).rglob("*.ckpt"):
+        path.unlink()
 
 
 def _cfg(tmp, **kw):
@@ -56,6 +66,7 @@ def trained(tmp_path_factory, h5_db):
     save = tmp_path_factory.mktemp("save")
     cfg = _cfg(save)
     summary = train(cfg, h5_db, verbose=False, device="cpu")
+    drop_jax_files(save)
     return cfg, summary
 
 
@@ -130,6 +141,7 @@ def test_resume_runs_exactly_n_epochs(tmp_path, h5_db):
     assert [step for step, _ in losses["lr"]] == [0, 4]
     # step_lr: the resumed epoch runs at lr * gamma
     assert losses["lr"][1][1] == pytest.approx(cfg.lr * cfg.gamma)
+    drop_jax_files(tmp_path)
 
 
 def test_explicit_pretrained_path_must_exist(tmp_path, h5_db):
@@ -363,6 +375,7 @@ def test_train_cli_runs_on_the_cpu(tmp_path, h5_db):
     model_dir = tmp_path / "data" / "save" / model_id
     assert (model_dir / f"{model_id}.pth").exists()
     assert json.loads((model_dir / "losses.json").read_text())["valid"]
+    drop_jax_files(tmp_path)
 
 
 @pytest.mark.parametrize("backbone", ["resnet", "xception", "mobilenet",
@@ -493,6 +506,7 @@ def test_train_cli_runs_the_new_backbones_on_the_cpu(flags, tmp_path, h5_db):
     assert ("backbone.bn1.running_mean" in best["model"]
             or "backbone.features.0.1.running_mean" in best["model"]) \
         == (len(flags) == 2)
+    drop_jax_files(tmp_path)
     if len(flags) > 2:
         return
     photo = str(tmp_path / "photo.jpg")
