@@ -4,11 +4,12 @@
 
 Phases, in order; any failed check raises, and the script exits non-zero:
 
-  [build]  nvcc builds both kernel libraries from the checkout's sources
-           and g++ the host palette library, in parallel: K1 (the
+  [build]  nvcc builds the three kernel libraries from the checkout's
+           sources and g++ the host palette library, in parallel: K1 (the
            dense-CRF mean-field iteration, csrc/crf_iteration.cu), K2a/K2b
            (the fused CE+Dice+Focal loss forward and backward,
-           csrc/fused_loss.cu) with their register and spill reports, and
+           csrc/fused_loss.cu), Q and KQ (int8 quantize and convolution,
+           csrc/int8_conv.cu) with their register and spill reports, and
            csrc/host_lut.cpp.
   [k1]     K1 against its plain torch version at the serving shape (the
            tiled kernel), at 1024x1792 with schema_b's 11 classes beside
@@ -68,6 +69,19 @@ Phases, in order; any failed check raises, and the script exits non-zero:
            map and mask equal, K1 launched 5 x 4 times, total wall and
            MP/s of both, each photo's completion time, peak memory, and
            the device's busy time per photo under ``torch.profiler``.
+  [int8]   the int8 inference path (``quant.py``): [slice]'s model and
+           .pth, calibrated under bf16 autocast on 32 seeded tiles of an
+           in-memory DB, then ``make_predict_int8`` in a ``Segmenter``
+           (batch 16, the CRF on) on [slice]'s 3584x2048 photo, in turns
+           with the bf16 Segmenter (bf16, int8, int8, bf16): stage times,
+           peak memory, KQ and Q launched once per calibrated conv per
+           batch (114 x 6 per photo) and every calibrated conv seen to
+           run, the class map's agreement with bf16 (reported: random
+           weights have near-ties); then each distinct conv of one batch
+           of the photo's 16 tiles (34 shapes) and a MobileNetV2 depthwise
+           conv, Q and KQ bit-equal to their plain versions and timed
+           beside their bounds, ``torch._int_mm`` on an im2col and cuDNN's
+           bf16 convolution of the layer.
   [radius] ``test --crf_radius 5`` and ``8``: [slice]'s model through its
            ``.pth`` with the CRF at radius 5, then 8, each on a seeded
            3584x2048 photo, K1 as ``narrow<R=5>`` and ``narrow<R=8>`` 5
@@ -214,6 +228,13 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+# the card's timers and peaks (NVIDIA's data sheet, H100 SXM: device
+# memory, fp32 outside the tensor cores); importing the package fails
+# outside a checkout
+from pylc_tpu_torch.tools.time_kernels import (PEAK_BYTES_PER_S,
+                                               PEAK_FP32_FLOP_PER_S, cuda_ms,
+                                               graph_ms)
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 SLICE_HW = (2048, 3584)        # bench.py's 3872x2592 photo, fitted
 CLI_PHOTO_HW = (2592, 3872)
@@ -339,10 +360,6 @@ K2_ACC_RTOL = 1e-5             # per entry of the 3C + 4 statistics: each is
                                # moves it by ~log2(N) eps_f32 of itself
 K2_LOSS_RTOL = 1e-5            # on total, ce, dice and focal
 K2_DX_RTOL = 1e-5              # on dlogits, times max |dlogits|
-# The card's peaks for the bounds (NVIDIA's data sheet, H100 SXM): device
-# memory, and fp32 outside the tensor cores.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_FLOP_PER_S = 67e12
 TRAIN_TILES = 40               # in-memory DB, 512 px
 TRAIN_EPOCHS = 2
 FIXED_STEPS = 10               # timed steps on one fixed batch
@@ -406,48 +423,13 @@ RESUME_STEPS = (3, 2)  # [resume]: bf16 steps before the carry, f32 after
 # parameter by about the lr).
 RESUME_RTOL = 1e-7
 ARTIFACT_PHOTOS = 5            # timed photos through the loaded artifact
+INT8_CALIB_TILES = 32          # [int8]: seeded tiles the scales come from
+INT8_LAUNCHES = 20             # per shape, a graph and a host loop of each
+                               # (tools/time_kernels.py --int8 takes 50)
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def cuda_ms(fn, n: int, warmup: int = 2) -> float:
-    """Mean device milliseconds of ``fn`` over ``n`` back-to-back calls."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / n
-
-
-def graph_ms(fn, n: int) -> float:
-    """Mean device milliseconds of ``fn`` over ``n`` calls replayed from
-    one CUDA graph: what the launches take on the card with no host time
-    between them.  A loop on the host measures the host instead wherever
-    a launch costs it more than the kernel costs the card, which for the
-    loss kernels (tens of microseconds) depends on the machine."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(n):
-            fn()
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / n
 
 
 def card_line() -> str:
@@ -524,7 +506,8 @@ def phase_build():
     """Every library from source, one compiler each, started together.
     Fails if the host palette library does not build in C++."""
     from pylc_tpu_torch import native
-    from pylc_tpu_torch.ops.kernels import _build, crf_kernel, fused_loss
+    from pylc_tpu_torch.ops.kernels import (_build, crf_kernel, fused_loss,
+                                            int8_conv)
 
     def timed(build):
         t0 = time.perf_counter()
@@ -532,9 +515,9 @@ def phase_build():
         return path, report, time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as ex:
+    with ThreadPoolExecutor(max_workers=4) as ex:
         futs = [ex.submit(timed, k.build)
-                for k in (crf_kernel, fused_loss, native)]
+                for k in (crf_kernel, fused_loss, int8_conv, native)]
         results = [f.result() for f in futs]
     log(f"[build] nvcc {' '.join(_build.NVCC_FLAGS)} and g++ "
         f"{' '.join(_build.GXX_FLAGS)}: all built in "
@@ -856,6 +839,131 @@ def phase_slice(device, workdir, cfg_base=None, hw=SLICE_HW):
     launches, seg, _ = drive_photo("[slice]", cfg, model, device, photo,
                                    N_PHOTOS)
     return launches, pth, seg
+
+
+def phase_int8(device, pth):
+    """The int8 inference path on [slice]'s model and photo, then Q and KQ
+    at every distinct conv shape of one batch.  Returns (KQ and Q's
+    launches on the int8 photos, K1's there, the per-shape rows, their
+    sums per batch of 16 tiles, the depthwise row)."""
+    from pylc_tpu_torch.config import Config
+    from pylc_tpu_torch.infer import Segmenter
+    from pylc_tpu_torch.ops.crf import make_crf
+    from pylc_tpu_torch.ops.kernels.crf_kernel import crf_iteration
+    from pylc_tpu_torch.ops.kernels.int8_conv import int8_conv2d, quantize_int8
+    from pylc_tpu_torch.ops.tiles import grid_dims, unfold_tiles
+    from pylc_tpu_torch.quant import Int8Conv2d
+    from pylc_tpu_torch.tester import load_model
+    from pylc_tpu_torch.tools.time_kernels import (capture_conv_inputs,
+                                                   depthwise_entry, int8_rows,
+                                                   int8_sums,
+                                                   seeded_int8_predict)
+    cfg, model, predict = load_model(pth, Config(), device)
+    t = cfg.tile_size
+    predict_q, scales, calib_s, build_s = seeded_int8_predict(
+        cfg, model, device, INT8_CALIB_TILES, seed=15)
+    convs = {n: m for n, m in predict_q.model.named_modules()
+             if isinstance(m, Int8Conv2d)}
+    n_float = sum(isinstance(m, torch.nn.Conv2d) for m in model.modules())
+    log(f"[int8] calibrated {len(scales)} convs on {INT8_CALIB_TILES} "
+        f"tiles in {calib_s:.2f} s; weights quantized in {build_s:.2f} s; "
+        f"{len(convs)} convs on Q and KQ of the model's {n_float}")
+    if len(convs) != n_float:
+        raise AssertionError(f"{n_float - len(convs)} convs stayed float")
+
+    crf = make_crf(cfg)
+    seg_f = Segmenter(cfg, predict, device, batch_size=16, crf=crf)
+    seg_q = Segmenter(cfg, predict_q, device, batch_size=16, crf=crf)
+    photo = np.random.default_rng(0).integers(0, 255, (*SLICE_HW, 3),
+                                              dtype=np.uint8)
+    n_rows, n_cols = grid_dims(SLICE_HW[1], SLICE_HW[0], t, t // 2)
+    n_batches = -(-(n_rows * n_cols) // 16)
+    seg_f.segment_array_staged(photo)   # warm-ups
+    seg_q.segment_array_staged(photo)
+    ran = set()
+    hooks = [m.register_forward_hook(lambda mod, a, o, n=n: ran.add(n))
+             for n, m in convs.items()]
+
+    def timed(seg):
+        torch.cuda.reset_peak_memory_stats(device)
+        res = seg.segment_array_staged(photo)
+        res["peak"] = torch.cuda.max_memory_allocated(device)
+        return res
+
+    f1 = timed(seg_f)
+    int8_conv2d.launches = quantize_int8.launches = 0
+    crf_iteration.launches = 0
+    q1, q2 = timed(seg_q), timed(seg_q)
+    kq, q, k1 = (int8_conv2d.launches, quantize_int8.launches,
+                 crf_iteration.launches)
+    f2 = timed(seg_f)
+    for h in hooks:
+        h.remove()
+    expect = 2 * len(convs) * n_batches
+    log(f"[int8] KQ launches {kq}, Q launches {q} over 2 photos (expected "
+        f"{expect} = photos x {len(convs)} convs x {n_batches} batches); "
+        f"K1 {k1}; {len(ran)} of {len(convs)} calibrated convs ran")
+    if kq != expect or q != expect or ran != set(convs):
+        raise AssertionError(f"KQ {kq}, Q {q} launches (expected {expect}); "
+                             f"convs that did not run: "
+                             f"{sorted(set(convs) - ran)}")
+    if k1 != 2 * crf.params.n_iters:
+        raise AssertionError(f"K1 launched {k1} times on the int8 photos")
+    mp = q1["megapixels"]
+    for name, res in (("bf16", f1), ("int8", q1), ("int8", q2),
+                      ("bf16", f2)):
+        st = " ".join(f"{k} {v * 1e3:.2f} ms"
+                      for k, v in res["stages"].items())
+        log(f"[int8] {name}: {res['seconds']:.4f} s, "
+            f"{mp / res['seconds']:.3f} MP/s ({st}); peak device memory "
+            f"{res['peak'] / 2 ** 30:.3f} GiB")
+    for res in (q1, q2):
+        cm, canvas = res["class_map"], res["probs"]
+        if cm.shape != SLICE_HW or int(cm.max()) >= cfg.n_classes                 or not torch.isfinite(canvas).all():
+            raise AssertionError("int8 class map or canvas malformed")
+        row_err = (canvas.sum(-1) - 1).abs().max().item()
+        if not row_err <= 1e-3:
+            raise AssertionError(f"int8 canvas rows sum to 1 +- {row_err}")
+    if not np.array_equal(q1["class_map"], q2["class_map"]):
+        raise AssertionError("two int8 runs of one photo differ")
+    agree = float(np.mean(q1["class_map"] == f1["class_map"]))
+    log(f"[int8] class-map agreement int8 vs bf16 {agree:.6f} (reported, "
+        f"not gated: random weights have near-ties); int8 photo "
+        f"{(q1['seconds'] + q2['seconds']) / 2:.4f} s against bf16 "
+        f"{(f1['seconds'] + f2['seconds']) / 2:.4f} s in turns")
+    del q1, q2, f1, f2, seg_f, seg_q
+
+    tiles = unfold_tiles(torch.from_numpy(photo).to(device), t, t // 2)[:16]
+    entries = capture_conv_inputs(predict_q.model, lambda: predict_q(tiles))
+    rows = int8_rows(entries, INT8_LAUNCHES, INT8_LAUNCHES)
+    del entries
+    depthwise = int8_rows([depthwise_entry(device)], INT8_LAUNCHES,
+                          INT8_LAUNCHES)
+
+    def ms(v, fmt=".4f"):
+        return "-" if v is None else format(v, fmt)
+
+    for i, r in enumerate(rows + depthwise):
+        log(f"[int8] {'dw' if i == len(rows) else i:>2} x {r['x']} "
+            f"{r['x_dtype']} w {r['w']} s{r['stride'][0]} p{r['padding'][0]}"
+            f" d{r['dilation'][0]} g{r['groups']} x{r['count']} {r['form']}:"
+            f" KQ {r['kq_g_ms']:.4f} ms ([h] {r['kq_h_ms']:.4f}, plain "
+            f"{r['kq_plain_ms']:.2f}, _int_mm {ms(r['library_ms'])}, cuDNN "
+            f"bf16 {r['cudnn_bf16_ms']:.4f}, bound {r['kq_bound_ms']:.4f} "
+            f"{r['kq_bound_by']}, share {r['kq_bound_ms'] / r['kq_g_ms']:.4f})"
+            f"; Q {r['q_g_ms']:.4f} ms ([h] {r['q_h_ms']:.4f}, bound "
+            f"{r['q_bound_ms']:.4f}, torch.quantize_per_tensor "
+            f"{ms(r['q_library_ms'])})")
+    sums = int8_sums(rows)
+    log(f"[int8] per batch of 16 tiles ({sums['convs']} convs in "
+        f"{len(rows)} shapes): KQ {sums['kq_g_ms']:.3f} ms [g] "
+        f"({sums['kq_h_ms']:.3f} [h]), bound {sums['kq_bound_ms']:.3f} ms, "
+        f"_int_mm {ms(sums['library_ms'], '.3f')} ms, cuDNN bf16 "
+        f"{sums['cudnn_bf16_ms']:.3f} ms, plain {sums['kq_plain_ms']:.1f} "
+        f"ms; Q {sums['q_g_ms']:.3f} ms [g], bound {sums['q_bound_ms']:.3f}"
+        f" ms, torch.quantize_per_tensor {ms(sums['q_library_ms'], '.3f')} "
+        f"ms; every shape bit-equal to the plain versions")
+    return (kq, q, k1), rows, sums, depthwise[0]
 
 
 def phase_radius(device, pth):
@@ -2800,7 +2908,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 1
-    import pylc_tpu_torch  # noqa: F401  (fails outside a checkout)
 
     device = torch.device("cuda", 0)
     card = card_line()
@@ -2816,6 +2923,10 @@ def main() -> int:
         launches, pth, seg = phase_slice(device, workdir)
         many_launches = phase_many(seg, device)
         del seg
+        torch.cuda.empty_cache()
+        int8_launches, int8_table, int8_per_batch, int8_dw = phase_int8(
+            device, pth)
+        torch.cuda.empty_cache()
         radius_launches = phase_radius(device, pth)
         phase_cli(pth, workdir)
         serve_launches, artifact_launches = phase_serve(device, workdir, pth)
@@ -2847,6 +2958,7 @@ def main() -> int:
     # each path's launches: the count set to 0 just before it, read just
     # after; "launches" is the first path's
     k1_paths = {"slice": launches, "many": many_launches,
+                "int8_photo": int8_launches[2],
                 **{f"radius{r}_photo": n for r, n in radius_launches.items()},
                 "serve": serve_launches, "artifact": artifact_launches,
                 "wide_photo": wide_launches, "banded_photo": banded_launches,
@@ -2883,6 +2995,29 @@ def main() -> int:
             out["direct_ms"] = m["direct_ms"]
         return out
 
+    def int8_entry(name, replaces, key, err, launches, library, bound_by):
+        """Q or KQ over one batch of 16 tiles of the int8 photo: every
+        time the sum over its convs (``int8_sums``), [g] as ``ms``."""
+        m = int8_per_batch
+        return {"name": name, "route": "cuda",
+                "source": "pylc_tpu_torch/csrc/int8_conv.cu",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": m[err], "ms": m[f"{key}_g_ms"],
+                "plain_ms": m[f"{key}_plain_ms"],
+                "bound_ms": m[f"{key}_bound_ms"], "bound_by": bound_by,
+                "library_ms": m[library],
+                "share_of_bound": m[f"{key}_bound_ms"] / m[f"{key}_g_ms"],
+                "host_loop_ms": m[f"{key}_h_ms"],
+                "unit": f"one batch of 16 tiles: {m['convs']} launches",
+                "launches_per_unit": f"{m['convs']} per batch of 16 tiles,"
+                                     f" {launches // 2} per photo",
+                "launches_by_path": {"int8_photo": launches},
+                "cudnn_bf16_ms": m["cudnn_bf16_ms"],
+                "variants": [{k: r[k] for k in (
+                    "x", "w", "stride", "padding", "dilation", "groups",
+                    "count", "form", f"{key}_g_ms", f"{key}_bound_ms")}
+                    for r in int8_table + [int8_dw]]}
+
     loss_src = "pylc_tpu_torch/csrc/fused_loss.cu"
     print(json.dumps({"kernels": [
         entry("crf_iteration", "pylc_tpu_torch/csrc/crf_iteration.cu",
@@ -2894,6 +3029,11 @@ def main() -> int:
         entry("fused_loss_backward", loss_src,
               "pylc_tpu/ops/pallas/fused_loss.py:307", k2_paths[1],
               "1 per train step", dx_err, k2["bwd"], k2_checked["bwd"]),
+        int8_entry("int8_conv2d", "pylc_tpu/quant.py:133", "kq", "kq_err",
+                   int8_launches[0], "library_ms",
+                   int8_per_batch["kq_bound_by"]),
+        int8_entry("quantize_int8", "pylc_tpu/quant.py:130", "q", "q_err",
+                   int8_launches[1], "q_library_ms", "bytes"),
     ]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -150,8 +150,11 @@ class ServingModel:
         on (``device`` may name that type, or an index of it); a CUDA
         artifact raises where no card is visible."""
         from pylc_tpu_torch.device import resolve_device
-        # registers pylc::crf_iteration, which a program with the CRF calls
+        # registers pylc::crf_iteration, which a program with the CRF
+        # calls, and pylc::quantize_int8 / pylc::int8_conv2d, which an int8
+        # Segmenter's program calls (quant.make_predict_int8)
         from pylc_tpu_torch.ops.kernels import crf_kernel  # noqa: F401
+        from pylc_tpu_torch.ops.kernels import int8_conv  # noqa: F401
 
         with open(path, "rb") as f:
             magic = f.read(len(MAGIC))

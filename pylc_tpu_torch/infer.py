@@ -46,7 +46,6 @@ from pylc_tpu_torch.parallel.mesh import Mesh, shard_batch
 from pylc_tpu_torch.parallel.sharded_crf import (can_shard_crf,
                                                  mean_field_sharded)
 from pylc_tpu_torch.parallel.sharded_stitch import gather_rows
-from pylc_tpu_torch.train_state import make_predict
 from pylc_tpu_torch.utils.imageio import load_fitted, restore_size
 
 #: tile sets larger than this keep their probabilities in bf16 (the
@@ -66,12 +65,15 @@ class Segmenter:
     or on a mesh of devices.
 
     predict_fn: uint8 [B, t, t, C] on ``device`` -> f32 logits
-    [B, t, t, K] (``train_state.make_predict``).  crf: optional
-    (canvas [H, W, K], guide [H, W, C]) -> refined canvas.
+    [B, t, t, K] (``train_state.make_predict``, or
+    ``quant.make_predict_int8``).  crf: optional (canvas [H, W, K],
+    guide [H, W, C]) -> refined canvas.
 
     mesh: optional ``parallel.mesh.Mesh`` whose first device is
     ``device``; the network is replicated once on each of its other
-    distinct devices.  Where ``can_band`` holds, each device uploads,
+    distinct devices (``predict_fn.remake`` on a copy of
+    ``predict_fn.model``, so an int8 predict stays int8).  Where
+    ``can_band`` holds, each device uploads,
     forwards and stitches its own row band of the photo
     (``parallel/banded_infer.py``), else the tile batch is split over the
     devices and stitched on the first.  The CRF (from ``make_crf``) runs
@@ -99,7 +101,7 @@ class Segmenter:
                                  f"{self.device}")
             for dev in mesh.distinct[1:]:
                 replica = copy.deepcopy(predict_fn.model).to(dev)
-                self._predicts[dev] = make_predict(cfg, replica)
+                self._predicts[dev] = predict_fn.remake(replica)
         self.palette = np.asarray(cfg.palette_rgb, np.uint8)
         native.available()  # builds the host library now, not in a timing
 

@@ -337,4 +337,7 @@ def make_predict(cfg: Config, model: nn.Module
         return logits.float().permute(0, 2, 3, 1)
 
     predict.model = model  # what export.py traces the weights from
+    # what a Segmenter on a mesh builds each device's predict with, from a
+    # copy of ``model`` on that device (quant.make_predict_int8's too)
+    predict.remake = lambda replica: make_predict(cfg, replica)
     return predict

@@ -45,6 +45,7 @@ MODULES = [
     "pylc_tpu_torch.parallel.sharded_stitch",
     "pylc_tpu_torch.parallel.banded_infer",
     "pylc_tpu_torch.parallel.sharded_crf", "pylc_tpu_torch.parallel.syncbn",
+    "pylc_tpu_torch.quant", "pylc_tpu_torch.ops.kernels.int8_conv",
 ]
 BLOCKED = ("pylc_tpu", "jax", "jaxlib", "flax", "optax", "h5py")
 
